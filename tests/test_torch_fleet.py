@@ -1,0 +1,163 @@
+"""The port's fleet-mode diagnosis path against the JAX reference.
+
+The six-fault matrix of tests/test_fleet.py and a healthy fleet, at W=32,
+2 s, 2 kHz, seed 7: the port's simulator copy makes the reference's profiles;
+its service on the ``numpy`` backend gives the reference's diagnoses bitwise;
+on the ``torch`` backend (the plain version of kernel K1) the same
+functions, kinds, workers, hints, reasons and plans, with patterns to 1e-6.
+The port always runs on the CPU here.
+"""
+import numpy as np
+import pytest
+
+from repro.core import faults as RF
+from repro.core.critical_path import fleet_critical_times as ref_fct
+from repro.core.mitigation import plan_mitigations as ref_plans
+from repro.core.service import PerfTrackerService as RefService
+from repro.core.simulation import FleetSimulator as RefSim
+from repro.core.simulation import SimConfig as RefConfig
+
+from repro_torch.core import faults as F
+from repro_torch.core.critical_path import fleet_critical_times
+from repro_torch.core.events import profile_from_reference
+from repro_torch.core.mitigation import plan_mitigations
+from repro_torch.core.service import PerfTrackerService
+from repro_torch.core.simulation import (ALLGATHER, DATALOADER_STACK,
+                                         FORWARD_STACK, GC_STACK, GEMM,
+                                         FleetSimulator, SimConfig)
+
+# autouse fixture: torch on one CPU thread
+from _torch_inputs import one_torch_thread  # noqa: F401
+
+#: (fault factory taking a faults module, expected function, kind value)
+SCENARIOS = [
+    pytest.param(lambda m: [m.GpuThrottle(workers=range(4))], GEMM, 0,
+                 id="C1P1_gpu_throttle"),
+    pytest.param(lambda m: [m.NvlinkDown(workers=[5], group_size=16)],
+                 ALLGATHER, 2, id="C1P2_nvlink_down"),
+    pytest.param(lambda m: [m.RingSlowLink(slow_worker=9, rho=0.4)],
+                 ALLGATHER, 2, id="S3_ring_slow_link"),
+    pytest.param(lambda m: [m.SlowDataloader()], DATALOADER_STACK, 3,
+                 id="C2P1_slow_dataloader"),
+    pytest.param(lambda m: [m.CpuBoundForward(workers=range(6))],
+                 FORWARD_STACK, 3, id="C2P2_cpu_forward"),
+    pytest.param(lambda m: [m.AsyncGc(probability=0.5)], GC_STACK, 3,
+                 id="C2P3_async_gc"),
+    pytest.param(lambda m: [], None, None, id="healthy"),
+]
+
+
+def _fleets(faults, seed=7):
+    cfg = dict(n_workers=32, window_s=2.0, rate_hz=2000, seed=seed)
+    ref = RefSim(RefConfig(**cfg), faults(RF)).profile_window()
+    port = FleetSimulator(SimConfig(**cfg), faults(F)).profile_window()
+    return ref, port
+
+
+def _plans(plans):
+    return [(p.action.value, list(p.workers), p.detail) for p in plans]
+
+
+def assert_same_diagnosis(a, b, patterns_atol=None):
+    """Same functions, kinds, workers, hints, reasons and plans; patterns
+    and distances bitwise (``patterns_atol=None``) or to a tolerance."""
+    assert len(a.diagnoses) == len(b.diagnoses)
+    for da, db in zip(a.diagnoses, b.diagnoses):
+        aa, bb = da.abnormality, db.abnormality
+        assert aa.function == bb.function
+        assert da.hint == db.hint
+        assert aa.reason == bb.reason
+        assert int(aa.kind) == int(bb.kind)
+        np.testing.assert_array_equal(aa.workers, bb.workers)
+        if patterns_atol is None:
+            np.testing.assert_array_equal(aa.patterns, bb.patterns)
+            np.testing.assert_array_equal(aa.d_expect, bb.d_expect)
+            np.testing.assert_array_equal(aa.delta, bb.delta)
+            np.testing.assert_array_equal(aa.typical, bb.typical)
+        else:
+            np.testing.assert_allclose(aa.patterns, bb.patterns,
+                                       rtol=0, atol=patterns_atol)
+    assert _plans(plan_mitigations(a.diagnoses, a.fleet_size)) == \
+        _plans(ref_plans(b.diagnoses, b.fleet_size))
+
+
+def _assert_profiles_equal(port, ref):
+    conv = [profile_from_reference(p) for p in ref]
+    assert len(port) == len(conv)
+    for p, c in zip(port, conv):
+        assert p.worker == c.worker and p.window == c.window
+        assert p.events == c.events
+        assert list(p.streams) == list(c.streams)
+        for name, s in p.streams.items():
+            assert (s.rate_hz, s.t0) == (c.streams[name].rate_hz,
+                                         c.streams[name].t0)
+            np.testing.assert_array_equal(s.values, c.streams[name].values)
+
+
+@pytest.mark.parametrize("faults,expect,kind", SCENARIOS)
+def test_simulator_copy_makes_reference_profiles(faults, expect, kind):
+    ref, port = _fleets(faults)
+    _assert_profiles_equal(port, ref)
+
+
+@pytest.mark.parametrize("faults,expect,kind", SCENARIOS)
+def test_numpy_backend_bitwise_equals_reference(faults, expect, kind):
+    ref, port = _fleets(faults)
+    want = RefService(summarize_backend="numpy").diagnose_profiles(ref)
+    got = PerfTrackerService(summarize_backend="numpy",
+                             device="cpu").diagnose_profiles(port)
+    assert_same_diagnosis(got, want)
+    if expect is None:
+        assert got.functions() == []
+    else:
+        d = next(d for d in got.diagnoses if d.abnormality.function == expect)
+        assert int(d.abnormality.kind) == kind
+
+
+@pytest.mark.parametrize("faults,expect,kind", SCENARIOS)
+def test_torch_backend_gives_reference_diagnosis(faults, expect, kind):
+    ref, port = _fleets(faults)
+    want = RefService(summarize_backend="numpy").diagnose_profiles(ref)
+    svc = PerfTrackerService(device="cpu")
+    assert svc.summarize_backend.name == "torch"
+    assert_same_diagnosis(svc.diagnose_profiles(port), want,
+                          patterns_atol=1e-6)
+
+
+def test_critical_path_sweep_bitwise_equals_reference():
+    ref, port = _fleets(SCENARIOS[5].values[0])
+    assert fleet_critical_times(port) == ref_fct(ref)
+
+
+def _ring_example(sim_cls, cfg_cls, faults, svc):
+    """examples/diagnose_ring_fault.py's setup."""
+    sim = sim_cls(cfg_cls(n_workers=32, window_s=2.0, rate_hz=2000, seed=11),
+                  [faults.RingSlowLink(slow_worker=9, rho=0.5)])
+    trig = svc.feed_anchors(sim.anchor_events(80, degrade_after=40))
+    return trig, svc.diagnose_profiles(sim.profile_window(), trigger=trig)
+
+
+def test_ring_fault_flags_worker_9_and_detector_agrees():
+    trig, res = _ring_example(FleetSimulator, SimConfig, F,
+                              PerfTrackerService(device="cpu"))
+    ref_trig, ref_res = _ring_example(RefSim, RefConfig, RF, RefService())
+    assert trig is not None
+    assert (trig.reason, trig.time, trig.mean_duration, trig.baseline,
+            trig.detail, trig.channel) == \
+        (ref_trig.reason, ref_trig.time, ref_trig.mean_duration,
+         ref_trig.baseline, ref_trig.detail, ref_trig.channel)
+    d = next(d for d in res.diagnoses if d.abnormality.function == ALLGATHER)
+    assert d.abnormality.workers.tolist() == [9]
+    plans = plan_mitigations(res.diagnoses, 32)
+    assert (plans[0].action.value, plans[0].workers) == ("replace_hosts", [9])
+    assert_same_diagnosis(res, ref_res, patterns_atol=1e-6)
+
+
+def test_wire_mode_and_batches_wait_for_the_transport_slice():
+    svc = PerfTrackerService(device="cpu")
+    with pytest.raises(NotImplementedError, match="transport slice"):
+        svc.diagnose_profiles([], mode="wire")
+    with pytest.raises(NotImplementedError, match="transport slice"):
+        svc.diagnose_batch(None)
+    with pytest.raises(ValueError):
+        svc.diagnose_profiles([], mode="bogus")
