@@ -5,33 +5,87 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds kernel K1 (``src/repro_torch/csrc/pattern_summary.cu``, nvcc for
-sm_90a), holds it against its plain torch version on the card, drives the
-port's fleet-mode diagnosis path through ``PerfTrackerService`` on the ring
-fault of ``examples/diagnose_ring_fault.py`` and on a 256-worker fleet at the
-paper's profiling window (20 s at 10 kHz), and checks the diagnoses.  It
-prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
-as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises
-and the script exits non-zero without the last line.  It imports nothing of
-JAX or of the JAX reference package.
+It builds kernels K1 (``src/repro_torch/csrc/pattern_summary.cu``) and K2
+(``src/repro_torch/csrc/flash_attention.cu``) with nvcc for sm_90a, both at
+once, and then runs these phases, each checked:
+
+1. K1 against its plain torch version on the card, timed;
+2. the port's fleet-mode diagnosis path through ``PerfTrackerService`` on the
+   ring fault of ``examples/diagnose_ring_fault.py`` and on a 256-worker
+   fleet at the paper's profiling window (20 s at 10 kHz);
+3. K2 against its plain torch version at gemma2-2b's attention shapes
+   (bf16, local and global layers, at the trainer's 2048 tokens and at 8192)
+   and at the f32 shapes of the reference's kernel tests; K2 timed beside
+   its bound, its plain version, the library call that computes the same
+   function (``flex_attention`` under ``torch.compile``, with a tanh
+   ``score_mod`` and the causal/window block mask) and, for softcap 0,
+   ``scaled_dot_product_attention``;
+4. the full gemma2-2b trainer (26 layers, full width, bf16 with fp32 AdamW
+   state) for 5 steps of batch 1 x 2048 tokens through
+   ``Trainer.train_iteration``: 26 K2 launches a step, finite losses;
+5. a 4-worker ``TrainerWorkload`` at gemma2-2b's full width cut to 2 layers,
+   one window under ``DataloaderBurn`` and one under ``StepThrottle``, each
+   diagnosed on the card.
+
+It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
+raises and the script exits non-zero without the last line.  It imports
+nothing of JAX or of the JAX reference package.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+ROOT = Path(__file__).resolve().parent
+# torch.compile (the flex_attention yardstick) keeps its caches inside the
+# checkout's ignored build directory and compiles in this process
+for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                 ("TRITON_CACHE_DIR", "triton")):
+    os.environ.setdefault(var, str(ROOT / "src/repro_torch/_build" / sub))
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+sys.path.insert(0, str(ROOT / "src"))
 
 ATOL = 1e-5          # kernel vs plain version: float64 sums in another order
 PATTERN_ATOL = 1e-6  # cuda vs host numpy backend, per (beta, mu, sigma)
 TIMED_LAUNCHES = 10
 L2_FLUSH_BYTES = 256 << 20   # > the H100's 50 MB L2
+
+#: bf16 K2 vs its plain version, elementwise: |err| <= ATOL + RTOL * |ref|.
+#: Both round an fp32 result to bf16, so they may differ by one bf16 step
+#: (2^-7 of the value at most) plus fp32 summation noise; a dropped kv tile
+#: or a shifted window moves an output by about its own size.
+K2_BF16_ATOL = 1e-3
+K2_BF16_RTOL = 2.0 ** -7
+K2_LIBRARY_TOL = 0.035   # the library yardstick vs the plain version: the
+#                          reference's own bf16 kernel-test limit
+K2_F32_TOL = 2e-5
+GEMMA_ATTN = dict(softcap=50.0, scale=256 ** -0.5)   # gemma2-2b's layers
+GEMMA_WINDOW = 4096
+TRAIN_SEQ = 2048     # the trainer's tokens per step (batch 1)
+TRAIN_STEPS = 5
+FLEET_ITERS = 8      # iterations per profiling window (the reference's IPW)
+#: the phases of the fenced step a StepThrottle incident may localize to
+#: (the reference's tests/test_train_workload.py STEP_FUNCTIONS, less the
+#: xla.* sub-events this port does not record; ROADMAP Queue 3 keeps the
+#: attribution to optimizer.step as an open fault of the diagnosis).
+#: train.step alone cannot be flagged in one window on the card: it fills
+#: most of a healthy
+#: iteration (about 72% on an H100 80GB HBM3 at 700 W, this script's
+#: [trainer fleet] lines), so however slow the step gets, its
+#: max-normalized beta moves by less than 1 - 0.72 < 0.4, the localizer's
+#: differential threshold; and it has no sampled stream to show a mu.
+STEP_PHASES = ("train.step", "optimizer.step")
 
 
 def gpu_line() -> str:
@@ -132,6 +186,354 @@ def same_diagnosis(a, b, fleet_size: int) -> None:
         raise AssertionError("plan ladders differ")
 
 
+def reset_counts(K, K2) -> None:
+    """Set both kernels' launch counts to 0, just before a path runs."""
+    K.pattern_summary.launches = 0
+    K2.flash_attention.launches = 0
+
+
+def _rand(g, shape, dtype):
+    return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+
+def k2_checks(K2) -> dict:
+    """K2 against its plain version: gemma2-2b's shapes in bf16 (local and
+    global, at the trainer's length and at 8192), the reference's
+    kernel-test shapes and variants in f32."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    bf16_ratio = 0.0      # worst |err| / (ATOL + RTOL * |ref|) in bf16
+    cases = [(torch.bfloat16, (1, S, 8, 4, 256),
+              dict(GEMMA_ATTN, window=w), name)
+             for S in (TRAIN_SEQ, 8192)
+             for w, name in ((GEMMA_WINDOW, "gemma2 local"),
+                             (0, "gemma2 global"))]
+    cases += [(torch.float32, shape, {}, "kernel test")
+              for shape in ((1, 128, 4, 4, 64), (2, 256, 6, 2, 64),
+                            (1, 256, 8, 1, 128), (2, 128, 2, 2, 32))]
+    cases += [(torch.float32, (2, 256, 4, 2, 32), kw, "kernel test variant")
+              for kw in (dict(window=100), dict(softcap=20.0),
+                         dict(causal=False), dict(window=64, softcap=10.0))]
+    cases += [(torch.float32, (1, 2048, 8, 4, 256), dict(GEMMA_ATTN, window=w),
+               "gemma2 f32") for w in (GEMMA_WINDOW, 0)]
+    for dtype, (B, S, H, KV, D), kw, name in cases:
+        q = _rand(g, (B, S, H, D), dtype)
+        k, v = _rand(g, (B, S, KV, D), dtype), _rand(g, (B, S, KV, D), dtype)
+        out, lse = K2.flash_attention(q, k, v, return_lse=True, **kw)
+        ref, ref_lse = K2.flash_attention_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(out).all() and out.shape == ref.shape
+                and out.dtype == dtype):
+            raise AssertionError(f"K2 output not finite or misshapen ({name})")
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        lse_err = float((lse - ref_lse).abs().max())
+        worst[dtype] = max(worst[dtype], err)
+        extra = ""
+        if dtype == torch.bfloat16:
+            ratio = float((diff / (K2_BF16_ATOL + K2_BF16_RTOL
+                                   * ref.float().abs())).max())
+            bf16_ratio = max(bf16_ratio, ratio)
+            extra = (f", max |ref| {float(ref.float().abs().max()):.3g}, "
+                     f"worst err / limit {ratio:.3g}")
+        print(f"[k2 check] {name} {dtype} B={B} S={S} H={H} KV={KV} D={D} "
+              f"{kw}: max |out err| {err:.3g}, max |lse err| "
+              f"{lse_err:.3g}{extra}")
+        del q, k, v, out, lse, ref, ref_lse, diff
+    print(f"[k2 check] worst bf16 {worst[torch.bfloat16]:.4g} at "
+          f"{bf16_ratio:.3g} of its limit ({K2_BF16_ATOL} + {K2_BF16_RTOL} "
+          f"* |ref|), worst f32 {worst[torch.float32]:.3g} (tolerance "
+          f"{K2_F32_TOL})")
+    if bf16_ratio > 1.0 or worst[torch.float32] > K2_F32_TOL:
+        raise AssertionError("K2 disagrees with its plain version")
+    return {"bf16": worst[torch.bfloat16], "f32": worst[torch.float32]}
+
+
+def _sdpa(q, k, v, window: int):
+    """``scaled_dot_product_attention`` on (B, S, H, D) views, causal with
+    the same window (no softcap: SDPA has none)."""
+    F = torch.nn.functional
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    S = q.shape[1]
+    mask = None
+    if window and window < S:
+        pos = torch.arange(S, device=q.device)
+        mask = (pos[:, None] >= pos[None, :]) & \
+            (pos[:, None] - pos[None, :] < window)
+    if mask is None:
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                          enable_gqa=True)
+
+
+def _flex(S: int, window: int):
+    """``flex_attention`` under ``torch.compile`` computing K2's function at
+    gemma2-2b's settings on (B, S, H, D) views: the scaled score through a
+    tanh softcap (``score_mod``), a causal block mask with the window, GQA.
+    The block mask is built here, once, outside the timed call."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    cap, scale = GEMMA_ATTN["softcap"], GEMMA_ATTN["scale"]
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, qi, ki):
+        keep = qi >= ki
+        return keep & (qi - ki < window) if window else keep
+
+    block = create_block_mask(mask_mod, None, None, S, S, device="cuda")
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def run(q, k, v):
+        out = flex(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   score_mod=score_mod, block_mask=block, scale=scale,
+                   enable_gqa=True)
+        return out.transpose(1, 2)
+    return run
+
+
+def k2_timing(K2, flush) -> dict:
+    """K2 at the trainer's shape (and at 8192 tokens) by CUDA events, beside
+    its bound, its plain version, the same function in ``flex_attention``
+    and, with softcap 0, SDPA."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    res = {}
+    for S in (TRAIN_SEQ, 8192):
+        q = _rand(g, (1, S, 8, 256), torch.bfloat16)
+        k = _rand(g, (1, S, 4, 256), torch.bfloat16)
+        v = _rand(g, (1, S, 4, 256), torch.bfloat16)
+        for w, name in ((GEMMA_WINDOW, "local"), (0, "global")):
+            kw = dict(GEMMA_ATTN, window=w)
+            kms = timed_ms(lambda: K2.flash_attention(q, k, v, **kw),
+                           TIMED_LAUNCHES, flush)
+            pms = timed_ms(lambda: K2.flash_attention_reference(q, k, v,
+                                                                **kw), 3)
+            bms, by = K2.bound_ms(q, k, window=w)
+            kw0 = dict(kw, softcap=0.0)
+            k0ms = timed_ms(lambda: K2.flash_attention(q, k, v, **kw0),
+                            TIMED_LAUNCHES, flush)
+            sdpa_ms = timed_ms(lambda: _sdpa(q, k, v, w), TIMED_LAUNCHES,
+                               flush)
+            gap = float((_sdpa(q, k, v, w).transpose(1, 2).float()
+                         - K2.flash_attention(q, k, v, **kw0).float())
+                        .abs().max())
+            t = time.perf_counter()
+            flex = _flex(S, w)
+            ref = K2.flash_attention_reference(q, k, v, **kw)[0]
+            lib_err = float((flex(q, k, v).float() - ref.float()).abs().max())
+            del ref
+            compile_s = time.perf_counter() - t
+            if not lib_err <= K2_LIBRARY_TOL:
+                raise AssertionError(f"flex_attention disagrees with K2's "
+                                     f"plain version by {lib_err}")
+            lib_ms = timed_ms(lambda: flex(q, k, v), TIMED_LAUNCHES, flush)
+            print(f"[k2 time] S={S} {name} (window {w}): kernel {kms:.4f} ms, "
+                  f"bound {bms:.4f} ms by {by} ({bms / kms:.2%} of bound), "
+                  f"plain {pms:.3f} ms, flex_attention {lib_ms:.4f} ms "
+                  f"(compiled in {compile_s:.1f} s, max |err| vs plain "
+                  f"{lib_err:.3g}); softcap 0: kernel {k0ms:.4f} ms, "
+                  f"sdpa {sdpa_ms:.4f} ms (max |diff| {gap:.3g})")
+            res[(S, name)] = dict(ms=kms, plain_ms=pms, bound_ms=bms,
+                                  bound_by=by, library_ms=lib_ms,
+                                  library_err=lib_err, ms_softcap0=k0ms,
+                                  sdpa_ms=sdpa_ms)
+        del q, k, v
+    return res
+
+
+def attention_backward_ms(C, K2, flush) -> dict:
+    """The plain-torch attention backward of one gemma2-2b layer at the
+    trainer's shape, by CUDA events (the step's other attention cost)."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q = _rand(g, (1, TRAIN_SEQ, 8, 256), torch.bfloat16)
+    k = _rand(g, (1, TRAIN_SEQ, 4, 256), torch.bfloat16)
+    v = _rand(g, (1, TRAIN_SEQ, 4, 256), torch.bfloat16)
+    dout = _rand(g, (1, TRAIN_SEQ, 8, 256), torch.bfloat16)
+    out = {}
+    for w, name in ((GEMMA_WINDOW, "local"), (0, "global")):
+        spec = C.AttnSpec(window=w, **GEMMA_ATTN)
+        o, lse = K2.flash_attention(q, k, v, return_lse=True, window=w,
+                                    **GEMMA_ATTN)
+        out[name] = timed_ms(lambda: C._backward(q, k, v, o, lse, dout, spec),
+                             3, flush)
+    return out
+
+
+def logits_ce_ms(L, flush) -> float:
+    """gemma2-2b's tied LM head, logit softcap and cross-entropy, forward
+    and backward, at the trainer's shape."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    h = _rand(g, (1, TRAIN_SEQ, 2304), torch.bfloat16).requires_grad_(True)
+    table = (_rand(g, (256000, 2304), torch.bfloat16) * 0.02
+             ).requires_grad_(True)
+    labels = torch.randint(0, 256000, (1, TRAIN_SEQ), generator=g,
+                           device="cuda")
+
+    def run():
+        loss, _ = L.cross_entropy(L.lm_logits(table, h, 30.0), labels, 256000)
+        torch.autograd.grad(loss, (h, table))
+    return timed_ms(run, 3, flush)
+
+
+def trainer_phase(K, K2, ARCHS, Trainer, TrainConfig, DataConfig, OptConfig,
+                  Tracer) -> dict:
+    """The full gemma2-2b trainer: 5 instrumented steps on the card."""
+    cfg = ARCHS["gemma2-2b"]
+    tr = Trainer(cfg, DataConfig(batch=1, seq_len=TRAIN_SEQ), OptConfig(),
+                 TrainConfig(perftracker=False), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params, opt_state, _ = tr.init_state()
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated()
+    print(f"[trainer] gemma2-2b: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, batch 1 x {TRAIN_SEQ} "
+          f"tokens; init {time.perf_counter() - t:.2f} s, state "
+          f"{state_bytes} bytes on the card")
+    tracer = Tracer(worker=0)
+    tracer.start_window()
+    reset_counts(K, K2)
+    per_step, rows = [], []
+    for i in range(TRAIN_STEPS):
+        before = K2.flash_attention.launches
+        params, opt_state, m = tr.train_iteration(params, opt_state,
+                                                  tracer=tracer)
+        per_step.append(K2.flash_attention.launches - before)
+        rows.append((float(m["loss"]), float(m["grad_norm"])))
+    launches = K2.flash_attention.launches
+    prof = tracer.stop_window()
+    peak = torch.cuda.max_memory_allocated()
+    top = sorted((e for e in prof.events if e.depth == 1),
+                 key=lambda e: e.start)
+    names = [e.name for e in top]
+    if names != ["dataloader.next", "train.step",
+                 "optimizer.step"] * TRAIN_STEPS:
+        raise AssertionError(f"trainer phases {names}")
+    steps = []
+    for i, (loss, gnorm) in enumerate(rows):
+        d, s, o = (top[3 * i + j].duration for j in range(3))
+        steps.append(dict(dataloader_next_s=d, train_step_s=s,
+                          optimizer_step_s=o, loss=loss, grad_norm=gnorm))
+        print(f"[trainer] step {i + 1}: dataloader.next {d:.4f} s, "
+              f"train.step {s:.4f} s, optimizer.step {o:.4f} s; loss "
+              f"{loss:.4f} grad norm {gnorm:.4f}; K2 launches "
+              f"{per_step[i]}; max memory allocated {peak} bytes")
+    if not all(math.isfinite(x) for r in rows for x in r):
+        raise AssertionError("trainer loss or grad norm not finite")
+    if per_step != [cfg.num_layers] * TRAIN_STEPS:
+        raise AssertionError(f"K2 launches per step {per_step}, expected "
+                             f"{cfg.num_layers}")
+    profile = step_profile(tr, params, opt_state)
+    tr.loader.close()
+    del tr, params, opt_state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, steps=steps, peak=peak,
+                state_bytes=state_bytes, profile=profile)
+
+
+#: kernel-name fragments of the matrix products (cuBLAS / CUTLASS kernels)
+GEMM_NAMES = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "cublas")
+
+
+def step_profile(tr, params, opt_state) -> dict:
+    """One more full-depth step (after the counted ones) under
+    ``torch.profiler``: device busy time by kernel class against the step's
+    wall time, whose difference is the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        tr.train_iteration(params, opt_state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = {}
+    for e in prof.key_averages():    # the kernels' own rows, not the ops'
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    busy = sum(by_name.values())
+    k2 = sum(v for k, v in by_name.items() if "flash_fwd" in k)
+    gemm = sum(v for k, v in by_name.items()
+               if any(g in k for g in GEMM_NAMES))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    if busy == 0:
+        print("[profile] the profiler recorded no device time: not measured")
+    else:
+        print(f"[profile] one full-depth step under torch.profiler: wall "
+              f"{wall_ms:.2f} ms, device busy {busy:.2f} ms (idle share "
+              f"{1 - busy / wall_ms:.2%}); K2 {k2:.2f} ms, GEMM kernels "
+              f"{gemm:.2f} ms, other kernels {busy - k2 - gemm:.2f} ms")
+        for name, ms in top:
+            print(f"[profile]   {ms:9.3f} ms  {name[:110]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy, k2_ms=k2, gemm_ms=gemm)
+
+
+def trainer_fleet_phase(K, K2, ARCHS, TrainerWorkload, DataloaderBurn,
+                        StepThrottle, TrainConfig, DataConfig, OptConfig,
+                        PerfTrackerService, plan_mitigations,
+                        summarize_profile) -> dict:
+    """Four full-width gemma2-2b trainers cut to 2 layers (one local/global
+    pair), one window under each live fault, diagnosed on the card."""
+    cfg = ARCHS["gemma2-2b"].with_overrides(num_layers=2)
+    setup = (cfg, DataConfig(batch=1, seq_len=TRAIN_SEQ), OptConfig(),
+             TrainConfig(perftracker=False))
+    wl = TrainerWorkload(n_workers=4, setup=setup, device="cuda")
+    t = time.perf_counter()
+    wl._ensure_workers()
+    print(f"[trainer fleet] 4 workers x gemma2-2b at 2 layers: warm-up "
+          f"{time.perf_counter() - t:.2f} s, base iteration "
+          f"{wl.base_iter_s:.4f} s, memory allocated "
+          f"{torch.cuda.memory_allocated()} bytes")
+    out = {}
+    cases = [(DataloaderBurn(workers=(1,)), ("dataloader.next",), [1],
+              "migrate_dataloader"),
+             (StepThrottle(workers=(2,)), STEP_PHASES, [2],
+              "replace_hosts")]
+    for i, (fault, fns, workers, action) in enumerate(cases):
+        name = type(fault).__name__
+        reset_counts(K, K2)
+        wd = wl.run_window(i, [fault], FLEET_ITERS, None)
+        k2 = K2.flash_attention.launches
+        samples = [len(p.streams["cpu"].values) for p in wd.profiles]
+        for fname in ("dataloader.next", "train.step", "optimizer.step"):
+            pats = [summarize_profile(p, backend="numpy")[0][fname]
+                    for p in wd.profiles]
+            bms = [tuple(round(float(x), 4) for x in (p.beta, p.mu, p.sigma))
+                   for p in pats]
+            print(f"[trainer fleet] {name} {fname} (beta, mu, sigma) per "
+                  f"worker: {bms}")
+        svc = PerfTrackerService(family="host")
+        reset_counts(K, K2)
+        res = svc.diagnose_profiles(wd.profiles)
+        k1 = K.pattern_summary.launches
+        flagged = {d.abnormality.function: d.abnormality.workers.tolist()
+                   for d in res.diagnoses}
+        rules = {d.abnormality.function: d.abnormality.reason
+                 for d in res.diagnoses}
+        plans = [(p.action.value, list(p.workers))
+                 for p in plan_mitigations(res.diagnoses, 4)]
+        print(f"[trainer fleet] {name}{fault.workers}: K2 launches {k2}; cpu "
+              f"samples per worker {samples}; backend "
+              f"{svc.summarize_backend.name}, K1 launches {k1}; flagged "
+              f"{flagged} by rule {rules}; plans {plans}")
+        if k2 != cfg.num_layers * 4 * FLEET_ITERS:
+            raise AssertionError(f"K2 launches in the window {k2}")
+        hit = [f for f in fns if flagged.get(f) == workers]
+        planned = any(a == action and w in ([], workers) for a, w in plans)
+        if not hit or not planned or k1 == 0:
+            raise AssertionError(f"{name} not localized to {fns} on "
+                                 f"{workers} with {action}")
+        out[name] = dict(flagged=flagged, plans=plans, samples=samples)
+    wl.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -143,8 +545,20 @@ def main() -> int:
         from repro_torch.core.service import PerfTrackerService
         from repro_torch.core.simulation import (ALLGATHER, GEMM,
                                                  FleetSimulator, SimConfig)
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import flash_attention as K2
         from repro_torch.kernels import pattern_summary as K
+        from repro_torch.summarize.engine import summarize_profile
         from repro_torch.summarize.fleet import pack_fleet
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.data.pipeline import DataConfig
+        from repro_torch.instrument.tracer import Tracer
+        from repro_torch.models import attention_core as C
+        from repro_torch.models import layers as L
+        from repro_torch.optim.adamw import OptConfig
+        from repro_torch.train.loop import Trainer, TrainConfig
+        from repro_torch.train.workload import (DataloaderBurn, StepThrottle,
+                                                TrainerWorkload)
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
@@ -155,12 +569,24 @@ def main() -> int:
               "count": torch.cuda.device_count()}
     print(f"torch {torch.__version__} cuda {torch.version.cuda} | {card}")
 
-    # -- 1. build --------------------------------------------------------------
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("fp32 matmuls must not run in TF32")
+
+    # -- 1. build both kernels at once ----------------------------------------
     t = time.perf_counter()
-    lib = K.build()
-    print(f"[build] {lib.name} in {time.perf_counter() - t:.2f}s")
-    print(lib.with_suffix(".log").read_text().strip())
+    libs = _build.build_all([(K.SOURCE, "k1_pattern_summary"),
+                             (K2.SOURCE, "k2_flash_attention")])
+    print(f"[build] {[lib.name for lib in libs]} in "
+          f"{time.perf_counter() - t:.2f}s (parallel nvcc)")
+    for lib in libs:
+        print(lib.with_suffix(".log").read_text().strip())
     K.pattern_summary.library()
+    K2.flash_attention.library()
+    smem = {dt: [K2.flash_attention.smem_bytes(dt, d) for d in K2.HEAD_DIMS]
+            for dt in (torch.bfloat16, torch.float32)}
+    print(f"[build] K2 dynamic shared memory per block, bytes: bf16 "
+          f"{smem[torch.bfloat16]}, f32 {smem[torch.float32]} for D in "
+          f"{K2.HEAD_DIMS}")
 
     # the fleet at the paper's window: 256 workers, 20 s at 10 kHz
     t = time.perf_counter()
@@ -179,7 +605,7 @@ def main() -> int:
           f"{pack_s:.3f} s, critical-path sweep {crit_s:.3f} s; groups "
           f"{[g.u.shape for g in groups]}")
 
-    # -- 2. kernel vs plain version on the card ---------------------------------
+    # -- 2. kernel vs plain version on the card -------------------------------
     rng = np.random.default_rng(0)
     inputs = {f"fleet_group({g.u.shape[0]},{g.u.shape[1]})": g.u
               for g in groups}
@@ -217,7 +643,7 @@ def main() -> int:
     print(f"[time] K1 per diagnosis (all groups): kernel {k_ms:.4f} ms, "
           f"bound {b_ms:.4f} ms, plain {p_ms:.3f} ms, h2d {h_ms:.3f} ms")
 
-    # -- 3. ring fault (examples/diagnose_ring_fault.py) -------------------------
+    # -- 3. ring fault (examples/diagnose_ring_fault.py) ----------------------
     ring = FleetSimulator(SimConfig(n_workers=32, window_s=2.0, rate_hz=2000,
                                     seed=11),
                           [F.RingSlowLink(slow_worker=9, rho=0.5)])
@@ -229,7 +655,7 @@ def main() -> int:
         raise AssertionError("the detector did not trigger on the ring fault")
     ring_profiles = ring.profile_window()
     n_ring_groups = len(pack_fleet(ring_profiles).groups)
-    K.pattern_summary.launches = 0
+    reset_counts(K, K2)
     res = svc.diagnose_profiles(ring_profiles, trigger=trig)
     ring_launches = K.pattern_summary.launches
     flagged = {d.abnormality.function: d.abnormality.workers.tolist()
@@ -245,7 +671,7 @@ def main() -> int:
     # -- 4. fleet at the paper's window: the main path ------------------------
     svc = PerfTrackerService()
     torch.cuda.reset_peak_memory_stats()
-    K.pattern_summary.launches = 0
+    reset_counts(K, K2)
     t = time.perf_counter()
     res = svc.diagnose_profiles(profiles)
     wall = time.perf_counter() - t
@@ -273,7 +699,39 @@ def main() -> int:
     same_diagnosis(res, host.diagnose_profiles(profiles), 256)
     print("[fleet] cuda diagnosis == host numpy diagnosis")
 
-    # -- 5. kernels line, card, contract line -----------------------------------
+    del profiles, groups, res, host
+
+    # -- 5. K2 against its plain version, and its times -----------------------
+    k2_err = k2_checks(K2)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    k2_times = k2_timing(K2, flush)
+    bwd = attention_backward_ms(C, K2, flush)
+    head = logits_ce_ms(L, flush)
+    del flush
+    n_pairs = ARCHS["gemma2-2b"].num_layers // 2
+    fwd_step = n_pairs * (k2_times[(TRAIN_SEQ, "local")]["ms"]
+                          + k2_times[(TRAIN_SEQ, "global")]["ms"])
+    bwd_step = n_pairs * (bwd["local"] + bwd["global"])
+    print(f"[breakdown] per full-depth step at {TRAIN_SEQ} tokens: K2 "
+          f"forward {fwd_step:.3f} ms (26 launches), plain attention backward "
+          f"{bwd_step:.3f} ms (26 layers; one layer local {bwd['local']:.3f} "
+          f"/ global {bwd['global']:.3f} ms), LM head + softcap + CE "
+          f"forward+backward {head:.3f} ms")
+    torch.cuda.empty_cache()
+
+    # -- 6. the full gemma2-2b trainer: the main path of K2 -------------------
+    tr = trainer_phase(K, K2, ARCHS, Trainer, TrainConfig, DataConfig,
+                       OptConfig, Tracer)
+
+    # -- 7. the trainer fleet, diagnosed on the card --------------------------
+    trainer_fleet_phase(K, K2, ARCHS, TrainerWorkload, DataloaderBurn,
+                        StepThrottle, TrainConfig, DataConfig, OptConfig,
+                        PerfTrackerService, plan_mitigations,
+                        summarize_profile)
+
+    # -- 8. kernels line, card, contract line ---------------------------------
+    k2_main = k2_times[(TRAIN_SEQ, "global")]
     print(json.dumps({"kernels": [{
         "name": "pattern_summary",
         "route": "cuda",
@@ -288,6 +746,26 @@ def main() -> int:
         "bound_ms": b_ms,
         "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:25",
+        "launches": tr["launches"],
+        "shape": f"bf16 q (1, {TRAIN_SEQ}, 8, 256) k/v (1, {TRAIN_SEQ}, 4, "
+                 f"256), causal, softcap 50, global layer",
+        "max_abs_err": k2_err["bf16"],
+        "max_abs_err_f32": k2_err["f32"],
+        "ms": k2_main["ms"],
+        "plain_ms": k2_main["plain_ms"],
+        "bound_ms": k2_main["bound_ms"],
+        "bound_by": k2_main["bound_by"],
+        "library_ms": k2_main["library_ms"],
+        "library_call": "torch.compile(flex_attention), tanh score_mod, "
+                        "causal block mask, enable_gqa",
+        "library_max_abs_err": k2_main["library_err"],
+        "softcap0_ms": k2_main["ms_softcap0"],
+        "softcap0_sdpa_ms": k2_main["sdpa_ms"],
     }]}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card)

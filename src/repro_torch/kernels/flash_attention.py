@@ -1,0 +1,208 @@
+"""K2: flash attention forward on the card.
+
+``flash_attention(q, k, v, ...)`` computes softmax attention over
+q ``(B, Sq, H, D)`` and k/v ``(B, Skv, KV, D)`` in the JAX layout: GQA (kv
+head ``h // (H/KV)``), causal masking, a sliding window
+(``qpos - kpos < window``), a tanh logit softcap and a scale (``1/sqrt(D)``
+when 0).  It returns the output in q's dtype and, with ``return_lse``, the
+fp32 log-sum-exp ``(B, Sq, H)`` of every row, which the attention backward
+needs.  On a CUDA tensor it launches the hand-written kernel in
+``csrc/flash_attention.cu`` or raises; on a CPU tensor it runs
+``flash_attention_reference``, the plain torch version of the same function.
+
+The kernel replaces the JAX reference's Pallas TPU kernel
+``repro/kernels/flash_attention.py::_kernel``.  Its bound on an H100 is
+operations (``bound_ms``): 4 * D FLOPs per unmasked (q, k) pair and head at
+the dense tensor-core rate of the input type, against the bytes of q, k, v,
+the output and lse at 3.35 TB/s.  The library call that computes the same
+function is ``torch.nn.attention.flex_attention`` under ``torch.compile``
+with a tanh ``score_mod`` and a causal/window block mask; with softcap 0,
+``torch.nn.functional.scaled_dot_product_attention`` with the same mask is
+another.  ``chip_smoke.py`` times both beside the kernel; the port calls
+neither.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = _build.CSRC / "flash_attention.cu"
+NEG_INF = -1.0e30
+
+#: head dims the kernel is instantiated for (``dispatch`` in the source)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, fp32 on
+#: the CUDA cores, device memory
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def unmasked_pairs(Sq: int, Skv: int, causal: bool, window: int,
+                   q_offset: int = 0, kv_len: Optional[int] = None) -> int:
+    """Number of (q, k) position pairs the mask keeps."""
+    kv_len = Skv if kv_len is None else kv_len
+    qpos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(kv_len - 1, qpos) if causal else \
+        np.full(Sq, kv_len - 1, np.int64)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(Sq,
+                                                                  np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def bound_ms(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+             window: int = 0, q_offset: int = 0,
+             kv_len: Optional[int] = None) -> Tuple[float, str]:
+    """Least time an H100 could take for this call, and what bounds it:
+    ``max(FLOPs / peak, bytes / 3.35 TB/s)`` with 4 * D FLOPs per unmasked
+    pair and head, and q, k, v, out and lse each moved once."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    flops = 4.0 * D * B * H * unmasked_pairs(Sq, Skv, causal, window,
+                                             q_offset, kv_len)
+    size = q.element_size()
+    nbytes = (2 * B * Sq * H * D + 2 * B * Skv * KV * D) * size \
+        + B * Sq * H * 4
+    t_ops = flops / PEAK_FLOPS[q.dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def build() -> Path:
+    """Compile the CUDA source unless built already; returns the library
+    (``repro_torch.kernels._build``)."""
+    return _build.build(SOURCE, "k2_flash_attention")
+
+
+def _mask(Sq: int, Skv: int, causal: bool, window: int, q_offset: int,
+          kv_len: Optional[int], device) -> torch.Tensor:
+    qpos = q_offset + torch.arange(Sq, device=device)
+    kpos = torch.arange(Skv, device=device)
+    m = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        m &= qpos[:, None] >= kpos[None, :]
+    if window:
+        m &= (qpos[:, None] - kpos[None, :]) < window
+    if kv_len is not None:
+        m &= kpos[None, :] < kv_len
+    return m
+
+
+def flash_attention_reference(q, k, v, *, causal: bool = True,
+                              window: int = 0, softcap: float = 0.0,
+                              scale: float = 0.0, q_offset: int = 0,
+                              kv_len: Optional[int] = None):
+    """Plain torch version of K2: unblocked softmax attention in fp32 with
+    the reference's masking (the function of the reference's
+    ``kernels/ref.py::attention_oracle``).  Returns ``(out in q's dtype,
+    lse (B, Sq, H) fp32)``.  A row the mask empties wholly gives zeros and
+    ``lse = -1e30``, as the kernel does (the oracle would average it)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale or 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, Sq, KV, G, D)
+    s = torch.einsum("btkgd,bskd->btkgs", qg, k.float()) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    mask = _mask(Sq, Skv, causal, window, q_offset, kv_len,
+                 q.device)[None, :, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    lsum = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    out = torch.einsum("btkgs,bskd->btkgd", p, v.float()) / lsum
+    lse = (m + torch.log(lsum))[..., 0]
+    return (out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype),
+            lse.reshape(B, Sq, H))
+
+
+class FlashAttention:
+    """The K2 wrapper.  ``launches`` counts kernel launches (a plain
+    integer, never incremented on the CPU path)."""
+
+    def __init__(self):
+        self.launches = 0
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def library(self) -> ctypes.CDLL:
+        """Build (at first use) and load the kernel's shared library."""
+        if self._lib is None:
+            lib = ctypes.CDLL(str(build()))
+            ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+            lib.k2_flash_attention.argtypes = (
+                [p] * 5 + [i] * 6 + [ll] * 12
+                + [i, i, ctypes.c_float, ctypes.c_float, i, i, i, p])
+            lib.k2_flash_attention.restype = ctypes.c_int
+            lib.k2_smem_bytes.argtypes = [i, i]
+            lib.k2_smem_bytes.restype = ll
+            lib.k2_error_string.argtypes = [i]
+            lib.k2_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def smem_bytes(self, dtype: torch.dtype, D: int) -> int:
+        """Dynamic shared memory of one block, in bytes."""
+        return int(self.library().k2_smem_bytes(DTYPE_CODES[dtype], D))
+
+    def __call__(self, q, k, v, *, causal: bool = True, window: int = 0,
+                 softcap: float = 0.0, scale: float = 0.0,
+                 q_offset: int = 0, kv_len: Optional[int] = None,
+                 return_lse: bool = False):
+        if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+            raise ValueError("q, k, v must be (B, S, heads, D)")
+        B, Sq, H, D = q.shape
+        Skv, KV = k.shape[1], k.shape[2]
+        if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
+                or KV == 0 or H % KV:
+            raise ValueError(f"shapes q {tuple(q.shape)}, k "
+                             f"{tuple(k.shape)}, v {tuple(v.shape)} do not "
+                             "form GQA attention")
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                  q_offset=q_offset, kv_len=kv_len)
+        if q.device.type == "cpu":
+            out, lse = flash_attention_reference(q, k, v, **kw)
+            return (out, lse) if return_lse else out
+        if q.device.type != "cuda" or k.device != q.device \
+                or v.device != q.device:
+            raise ValueError(f"K2 runs on one CUDA device, got {q.device}, "
+                             f"{k.device}, {v.device}")
+        if q.dtype not in DTYPE_CODES or k.dtype != q.dtype \
+                or v.dtype != q.dtype:
+            raise TypeError(f"K2 takes float32 or bfloat16 q/k/v of one "
+                            f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
+        if D not in HEAD_DIMS:
+            raise ValueError(f"K2 takes head dims {HEAD_DIMS}, got {D}")
+        if any(t.stride(-1) != 1 for t in (q, k, v)):
+            raise ValueError("K2 takes tensors whose head dim is contiguous")
+        out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+        kv_len = Skv if kv_len is None else min(int(kv_len), Skv)
+        with torch.cuda.device(q.device):
+            code = self.library().k2_flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), B, Sq, Skv, H, KV, D,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *out.stride()[:3], int(causal), int(window), float(softcap),
+                float(scale or 1.0 / math.sqrt(D)), int(q_offset), kv_len,
+                DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+        if code != 0:
+            msg = self.library().k2_error_string(code).decode()
+            raise RuntimeError(f"K2 launch on q {tuple(q.shape)} k "
+                               f"{tuple(k.shape)} {q.dtype} failed: CUDA "
+                               f"error {code} ({msg})")
+        self.launches += 1
+        return (out, lse) if return_lse else out
+
+
+flash_attention = FlashAttention()

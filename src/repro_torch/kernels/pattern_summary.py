@@ -14,29 +14,21 @@ bytes: ``E*n*4`` read once and ``E*3*8`` written, at 3.35 TB/s
 library yardstick.
 
 The CUDA source is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface at first use, under ``_build/`` beside this
-package (keyed by a hash of the source and flags), and loaded with
-``ctypes``.
+library with a plain C interface at first use (``kernels/_build.py``) and
+loaded with ``ctypes``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch.core.patterns import MASS_FRACTION
+from repro_torch.kernels import _build
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "pattern_summary.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _build.CSRC / "pattern_summary.cu"
 
 #: samples each thread handles per tile, and the block size cap
 #: (kItems and kMaxThreads in the CUDA source)
@@ -60,33 +52,10 @@ def threads_for(n: int) -> int:
     return max(32, min(MAX_THREADS, 32 * warps))
 
 
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
 def build() -> Path:
-    """Compile the CUDA source into ``BUILD_DIR`` unless a library built from
-    the same source and flags is there already; returns its path.  The
-    compiler's ``-Xptxas -v`` report is kept beside it as ``.log``."""
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libk1_pattern_summary_{key}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    """Compile the CUDA source unless built already; returns the library
+    (``repro_torch.kernels._build``)."""
+    return _build.build(SOURCE, "k1_pattern_summary")
 
 
 class PatternSummary:

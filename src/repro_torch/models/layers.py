@@ -1,0 +1,185 @@
+"""Core neural-net building blocks in PyTorch (port of the reference's
+``repro/models/layers.py``).
+
+Conventions:
+  * params are nested dicts of tensors with the reference's names;
+  * ``init_*`` take a ``torch.Generator`` and return params (the values
+    differ from the reference's ``jax.random`` draws; tests carry the
+    reference's own init across with ``models.convert``);
+  * norm/softmax run in fp32 regardless of activation dtype;
+  * a stacked layer axis does not exist here: every layer holds its own
+    tensors (the reference's ``scan`` becomes a Python loop).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
+               scale: float = 1.0, device=None) -> Tensor:
+    """Truncated-normal (+-2 sigma) fan-in init, drawn in fp32."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale / math.sqrt(fan_in)
+    w = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (w * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+def init_norm(kind: str, d: int, dtype=torch.float32, device=None):
+    p = {"scale": torch.ones(d, dtype=dtype, device=device)}
+    if kind == "layer":
+        p["bias"] = torch.zeros(d, dtype=dtype, device=device)
+    return p
+
+
+def apply_norm(p, x: Tensor, kind: str, eps: float) -> Tensor:
+    xf = x.float()
+    if kind == "rms":
+        var = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    else:  # layernorm
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (..., S, H, D); positions: (..., S) integer."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # (D/2,)
+    ang = positions[..., None].float() * freqs              # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, D/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU / plain GELU)
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen, d: int, ff: int, kind: str, use_bias: bool,
+             dtype=torch.float32, device=None):
+    gated = kind in ("swiglu", "geglu")
+    p = {"wi": dense_init(gen, (d, 2, ff) if gated else (d, ff), dtype,
+                          device=device),
+         "wo": dense_init(gen, (ff, d), dtype, device=device)}
+    if use_bias:
+        p["bi"] = torch.zeros((2, ff) if gated else (ff,), dtype=dtype,
+                              device=device)
+        p["bo"] = torch.zeros(d, dtype=dtype, device=device)
+    return p
+
+
+def gelu(x: Tensor) -> Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(p, x: Tensor, kind: str) -> Tensor:
+    wi = p["wi"]
+    if kind in ("swiglu", "geglu"):
+        d, _, ff = wi.shape
+        h = (x @ wi.reshape(d, 2 * ff)).unflatten(-1, (2, ff))
+        if "bi" in p:
+            h = h + p["bi"]
+        gate, up = h[..., 0, :], h[..., 1, :]
+        act = F.silu(gate) if kind == "swiglu" else gelu(gate)
+        h = act * up
+    else:
+        h = x @ wi
+        if "bi" in p:
+            h = h + p["bi"]
+        h = gelu(h)
+    y = h @ p["wo"]
+    if "bo" in p:
+        y = y + p["bo"]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+def init_embed(gen, vocab: int, d: int, dtype=torch.float32, device=None):
+    return {"table": dense_init(gen, (vocab, d), dtype, scale=1.0,
+                                device=device)}
+
+
+def embed_lookup(p, ids: Tensor, scale: bool, d: int) -> Tensor:
+    out = p["table"][ids]
+    if scale:
+        out = out * torch.tensor(math.sqrt(d), dtype=out.dtype,
+                                 device=out.device)
+    return out
+
+
+def lm_logits(table_or_head: Tensor, x: Tensor, softcap: float) -> Tensor:
+    """fp32 logits: the product in the activation dtype, then cast, then
+    the tanh softcap (the reference's order, ``layers.py:133-137``)."""
+    logits = (x @ table_or_head.t()).float()
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits
+
+
+def softcap(x: Tensor, cap: float) -> Tensor:
+    return torch.tanh(x / cap) * cap if cap else x
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: Tensor, labels: Tensor, vocab_size: int
+                  ) -> Tuple[Tensor, Tensor]:
+    """Mean next-token NLL over non-pad labels (label < 0 is padding).
+    logits fp32 (..., V_padded); padded vocab positions are masked out."""
+    v = logits.shape[-1]
+    keep = torch.arange(v, device=logits.device) < vocab_size
+    logits = torch.where(keep, logits,
+                         torch.finfo(torch.float32).min)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = lse - ll
+    mask = (labels >= 0).float()
+    total = mask.sum().clamp(min=1.0)
+    return (nll * mask).sum() / total, total
+
+
+def param_bytes(tree: Dict) -> int:
+    """Bytes held by every tensor of a nested dict/list of tensors."""
+    if isinstance(tree, Tensor):
+        return tree.numel() * tree.element_size()
+    items = tree.values() if isinstance(tree, dict) else tree
+    return sum(param_bytes(t) for t in items)

@@ -1,0 +1,216 @@
+"""Training loop with PerfTracker attached (port of the reference's
+``repro/train/loop.py``).
+
+``train_iteration`` is the fully-instrumented single step the
+``TrainerWorkload`` (``repro_torch.train.workload``) drives: every phase of
+a real step — ``dataloader.next`` / ``train.step`` (forward + backward,
+ended by a device synchronize on the gradients) / ``optimizer.step`` — is
+recorded as a Tracer event.
+
+Device policy: the trainer runs on ``device`` (``None`` means ``"cuda"``)
+and raises without a CUDA device unless the caller passes ``"cpu"``.
+
+Not ported yet: checkpointing (a non-empty ``ckpt_dir`` raises, ROADMAP
+Queue 1 item 9), and the reference's ``xla.gemm`` / ``xla.other``
+sub-events, which split ``train.step`` by XLA's HLO cost model: here
+``StepBundle.gemm_frac`` is None, which the reference itself treats as
+"attribution unavailable" (a torch-side cost split is Queue 1 item 11).
+"""
+from __future__ import annotations
+
+import gc
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.events import Kind
+from repro_torch.core.mitigation import Action, plan_mitigations
+from repro_torch.core.service import resolve_device
+from repro_torch.data.pipeline import DataConfig, DataLoader, SyntheticLM
+from repro_torch.instrument.hooks import PerfTracker, PerfTrackerConfig
+from repro_torch.instrument.tracer import sync
+from repro_torch.models.transformer import Transformer
+from repro_torch.optim.adamw import AdamW, OptConfig
+from repro_torch.train.step import make_split_train_step, make_train_step
+
+
+@contextmanager
+def _noop_phase(name, kind=None, depth=1, fence=None, resource=""):
+    yield
+
+
+@dataclass
+class StepBundle:
+    """The split step's two halves, shareable across same-shape trainers.
+    ``gemm_frac`` is always None here (module docstring)."""
+    grad_step: Callable
+    opt_step: Callable
+    gemm_frac: Optional[float] = None
+
+
+@dataclass
+class TrainConfig:
+    steps: int = 50
+    log_every: int = 10
+    ckpt_every: int = 0              # 0 = off
+    ckpt_dir: str = ""
+    remat: str = "none"
+    folded: bool = False
+    perftracker: bool = True
+    pt_window_s: float = 1.0
+    seed: int = 0
+
+
+class Trainer:
+    def __init__(self, cfg: ModelConfig, data: DataConfig,
+                 opt_cfg: OptConfig, tc: TrainConfig, dist=None,
+                 device=None):
+        if tc.ckpt_dir:
+            raise NotImplementedError("checkpointing is not ported yet: "
+                                      "ROADMAP Queue 1 item 9")
+        if dist is not None:
+            raise NotImplementedError("distributed training is not ported "
+                                      "yet: ROADMAP Queue 1 item 11")
+        self.device = resolve_device(device)
+        self.cfg, self.data_cfg, self.tc = cfg, data, tc
+        self.model = Transformer(cfg, remat=tc.remat, folded=tc.folded)
+        self.opt = AdamW(opt_cfg)
+        self.source = SyntheticLM(cfg, data)
+        self.loader = DataLoader(self.source)
+        self._fused_step = make_train_step(self.model, self.opt)
+        self.pt: Optional[PerfTracker] = None
+        if tc.perftracker:
+            self.pt = PerfTracker(PerfTrackerConfig(
+                window_s=tc.pt_window_s,
+                family="moe" if cfg.is_moe else "dense"),
+                device=self.device)
+            self._next, self._opt_anchor = self.pt.wrap(
+                self.loader.next, lambda: None)
+        else:
+            self._next, self._opt_anchor = self.loader.next, lambda: None
+        self.history: list = []
+        self.mitigations: list = []
+        self.last_diagnosis = None       # most recent consumed PT result
+        # split-step bundle for the instrumented train_iteration path
+        # (built lazily; assignable so an in-process fleet shares one)
+        self.bundle: Optional[StepBundle] = None
+        # the step phases read the cpu stream only when the step runs on
+        # the CPU; on the card they name the device stream, which no
+        # sampler records, and keep beta-only patterns (as the reference)
+        self._step_resource = "cpu" if self.device.type == "cpu" else ""
+        self._iter = 0
+        # live fault-injection hooks (repro_torch.train.workload perturbs
+        # the REAL loop for end-to-end diagnosis scenarios); all off
+        self.data_burn_s = 0.0           # CPU spin inside dataloader.next
+        self.step_pad_s = 0.0            # stall inside train.step
+        self.gc_pause_s = 0.0            # gc.collect + stall, every
+        self.gc_every = 1                # gc_every iterations
+
+    # ------------------------------------------------------------------
+    def init_state(self, resume: bool = True):
+        """Fresh parameters (seed ``tc.seed``) on the trainer's device and
+        their optimizer state; returns ``(params, opt_state, 0)``."""
+        params = self.model.init(self.tc.seed, device=self.device)
+        return params, self.opt.init(params), 0
+
+    def _batch(self, batch_np):
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in batch_np.items()}
+
+    # ------------------------------------------------------------------
+    def ensure_bundle(self) -> StepBundle:
+        if self.bundle is None:
+            grad_fn, opt_fn = make_split_train_step(self.model, self.opt)
+            self.bundle = StepBundle(grad_step=grad_fn, opt_step=opt_fn)
+        return self.bundle
+
+    def train_iteration(self, params, opt_state, tracer=None):
+        """One fully-instrumented iteration of the REAL loop.
+
+        Every phase is a genuine host-visible span: ``dataloader.next``
+        (PYTHON, including the copy of the batch to the device),
+        ``train.step`` (forward + backward, ended by a device synchronize
+        on the gradients), ``optimizer.step`` (fenced on the new params).
+        ``tracer`` may be None or inactive — the loop then runs unobserved.
+        Returns ``(params, opt_state, metrics)``; the optimizer updates the
+        given ``params`` and ``opt_state`` in place."""
+        ph = tracer.phase if tracer is not None else _noop_phase
+        with ph("dataloader.next", Kind.PYTHON):
+            batch = self._batch(self.loader.next())
+            if self.data_burn_s > 0.0:    # injected fault: CPU-burning loader
+                deadline = time.perf_counter() + self.data_burn_s
+                x = 1.0
+                while time.perf_counter() < deadline:
+                    x = x * 1.0000001 + 1.0
+        bundle = self.ensure_bundle()
+        res = self._step_resource
+        t0 = time.perf_counter()
+        grads, metrics = bundle.grad_step(params, batch)
+        if self.step_pad_s > 0.0:         # injected fault: slow device step
+            time.sleep(self.step_pad_s)
+        sync(grads)
+        t1 = time.perf_counter()
+        if tracer is not None and tracer.active:
+            tracer.add_event("train.step", Kind.GPU, t0, t1, depth=1,
+                             resource=res)
+        with ph("optimizer.step", Kind.GPU, resource=res,
+                fence=lambda: new_params):
+            new_params, new_opt, opt_metrics = bundle.opt_step(
+                grads, opt_state, params)
+        del grads
+        self._iter += 1
+        if self.gc_pause_s > 0.0 and self._iter % max(1, self.gc_every) == 0:
+            # injected fault: unsynchronized gc stall (C2P3 stand-in)
+            with ph("runtime.gc", Kind.PYTHON):
+                gc.collect()
+                time.sleep(self.gc_pause_s)
+        m = dict(metrics)
+        m.update(opt_metrics)
+        return new_params, new_opt, m
+
+    # ------------------------------------------------------------------
+    def run(self, steps: Optional[int] = None):
+        params, opt_state, start = self.init_state()
+        n = steps or self.tc.steps
+        tracer = self.pt.tracer if self.pt else None
+        for step in range(start, start + n):
+            batch = self._batch(self._next())
+            if tracer:
+                with tracer.phase("train.step", Kind.GPU, depth=1,
+                                  fence=lambda: metrics["loss"]):
+                    params, opt_state, metrics = self._fused_step(
+                        params, opt_state, batch)
+            else:
+                params, opt_state, metrics = self._fused_step(
+                    params, opt_state, batch)
+            self._opt_anchor()
+            if (step + 1) % self.tc.log_every == 0 or step == start:
+                m = {k: float(v) for k, v in metrics.items()}
+                self.history.append({"step": step + 1, **m})
+                print(f"step {step+1:5d} loss {m['loss']:.4f} "
+                      f"nll {m['nll']:.4f} gnorm {m['grad_norm']:.3f} "
+                      f"lr {m['lr']:.2e}", flush=True)
+            self._maybe_mitigate(step + 1)
+        self.loader.close()
+        return params, opt_state
+
+    # ------------------------------------------------------------------
+    def _maybe_mitigate(self, step: int) -> None:
+        """Consume the newest PerfTracker diagnosis and record the plans it
+        suggests (the checkpoint-backed actions wait for the checkpoint
+        slice)."""
+        if not self.pt or not self.pt.results:
+            return
+        res = self.pt.results.pop()
+        self.last_diagnosis = res
+        for p in plan_mitigations(res.diagnoses, fleet_size=1):
+            if p.action == Action.NONE:
+                continue
+            self.mitigations.append((step, p))
+            print(f"[perftracker] step {step}: "
+                  f"{res.trigger.reason if res.trigger else '?'} -> "
+                  f"{p.action.value}: {p.detail}", flush=True)

@@ -1,0 +1,75 @@
+"""Train / prefill / serve step builders (port of the reference's
+``repro/train/step.py``).  PyTorch runs eagerly, so a step is a plain
+function: nothing is traced or compiled.
+
+Parameters are leaf tensors; ``grad_step`` differentiates the loss with
+``torch.autograd.grad`` and returns the gradients as a tree shaped like the
+parameters.  The optimizer updates in place (``optim/adamw.py``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.transformer import (Transformer, param_leaves,
+                                            unflatten_like)
+from repro_torch.optim.adamw import AdamW
+
+
+def _grad_fn(model: Transformer):
+    def grad_step(params, batch):
+        leaves = [t for _, t in param_leaves(params)]
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            loss, metrics = model.loss(params, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        return unflatten_like(params, list(grads)), metrics
+    return grad_step
+
+
+def make_split_train_step(model: Transformer, opt: AdamW):
+    """The step in two halves, ``grad_step(params, batch) -> (grads,
+    metrics)`` and ``opt_step(grads, opt_state, params) -> (params,
+    opt_state, opt_metrics)``, so an instrumented loop can fence between
+    the forward+backward and the optimizer update (``train.step`` vs
+    ``optimizer.step`` phases)."""
+    def opt_step(grads, opt_state, params):
+        return opt.update(grads, opt_state, params)
+    return _grad_fn(model), opt_step
+
+
+def make_train_step(model: Transformer, opt: AdamW, accum_steps: int = 1):
+    """The fused step ``train_step(params, opt_state, batch) -> (params,
+    opt_state, metrics)``.  Gradient accumulation (``accum_steps > 1``) is
+    not ported yet (ROADMAP Queue 1 item 7)."""
+    if accum_steps != 1:
+        raise NotImplementedError("gradient accumulation is not ported yet: "
+                                  "ROADMAP Queue 1 item 7")
+    grad_step = _grad_fn(model)
+
+    def train_step(params, opt_state, batch):
+        grads, metrics = grad_step(params, batch)
+        params, opt_state, opt_metrics = opt.update(grads, opt_state, params)
+        metrics.update(opt_metrics)
+        return params, opt_state, metrics
+    return train_step
+
+
+def make_prefill_step(model: Transformer):
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        hidden, _, cache = model.forward(params, batch, collect_cache=True)
+        return model.logits(params, hidden[:, -1:, :]), cache
+    return prefill_step
+
+
+def make_serve_step(model: Transformer):
+    @torch.no_grad()
+    def serve_step(params, cache, batch, pos):
+        return model.decode_step(params, cache, batch, pos)
+    return serve_step
