@@ -5,9 +5,10 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds kernels K1 (``src/repro_torch/csrc/pattern_summary.cu``) and K2
-(``src/repro_torch/csrc/flash_attention.cu``) with nvcc for sm_90a, both at
-once, and then runs these phases, each checked:
+It builds kernels K1 (``src/repro_torch/csrc/pattern_summary.cu``), K2
+(``src/repro_torch/csrc/flash_attention.cu``) and K3
+(``src/repro_torch/csrc/ssd_scan.cu``) with nvcc for sm_90a, all at once,
+and then runs these phases, each checked:
 
 1. K1 against its plain torch version on the card, timed;
 2. the port's fleet-mode diagnosis path through ``PerfTrackerService`` on the
@@ -25,7 +26,14 @@ once, and then runs these phases, each checked:
    ``Trainer.train_iteration``: 26 K2 launches a step, finite losses;
 5. a 4-worker ``TrainerWorkload`` at gemma2-2b's full width cut to 2 layers,
    one window under ``DataloaderBurn`` and one under ``StepThrottle``, each
-   diagnosed on the card.
+   diagnosed on the card;
+6. K3 against its plain torch version (f32 on the shapes of the reference's
+   kernel tests, bf16 at mamba2-2.7b's layer shape, and a chunk whose
+   upper-triangle decay overflows float32), timed beside its bound and its
+   plain version, with the plain SSD backward of one layer;
+7. the full mamba2-2.7b trainer (64 layers, full width, bf16 with f32
+   ``A_log``/``D``/``dt_bias`` and fp32 AdamW state) for 5 steps of batch
+   1 x 2048 tokens: 64 K3 launches a step, finite losses and grad norms.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -61,12 +69,13 @@ PATTERN_ATOL = 1e-6  # cuda vs host numpy backend, per (beta, mu, sigma)
 TIMED_LAUNCHES = 10
 L2_FLUSH_BYTES = 256 << 20   # > the H100's 50 MB L2
 
-#: bf16 K2 vs its plain version, elementwise: |err| <= ATOL + RTOL * |ref|.
-#: Both round an fp32 result to bf16, so they may differ by one bf16 step
-#: (2^-7 of the value at most) plus fp32 summation noise; a dropped kv tile
-#: or a shifted window moves an output by about its own size.
-K2_BF16_ATOL = 1e-3
-K2_BF16_RTOL = 2.0 ** -7
+#: bf16 K2 or K3 vs its plain version, elementwise: |err| <= ATOL + RTOL *
+#: |ref|.  Both round an fp32 result to bf16, so they may differ by one bf16
+#: step (2^-7 of the value at most) plus fp32 summation noise; a dropped kv
+#: tile, a shifted window or a lost chunk of state moves an output by about
+#: its own size.
+BF16_ATOL = 1e-3
+BF16_RTOL = 2.0 ** -7
 K2_LIBRARY_TOL = 0.035   # the library yardstick vs the plain version: the
 #                          reference's own bf16 kernel-test limit
 K2_F32_TOL = 2e-5
@@ -87,12 +96,35 @@ FLEET_ITERS = 8      # iterations per profiling window (the reference's IPW)
 #: differential threshold; and it has no sampled stream to show a mu.
 STEP_PHASES = ("train.step", "optimizer.step")
 
+MAMBA = "mamba2-2.7b"
+MAMBA_SEQ = 2048     # the mamba2 trainer's tokens per step (batch 1)
+#: K3's inputs at mamba2-2.7b's layer: (B, S, H, P, G, N, chunk)
+MAMBA_LAYER = (1, MAMBA_SEQ, 80, 64, 1, 128, 256)
+#: the reference's SSD kernel-test shapes (tests/test_kernels.py:48-51)
+K3_TEST_SHAPES = [(1, 64, 2, 16, 1, 8, 16), (2, 128, 4, 32, 2, 16, 32),
+                  (1, 128, 4, 64, 4, 32, 64), (1, 32, 2, 16, 2, 16, 32)]
+K3_F32_TOL = 2e-5    # max |err| / max |ref|, the reference's own limit
+
 
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+class PhaseClock:
+    """Wall seconds of each phase of the script, printed as it ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.times: dict[str, float] = {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.times[name] = round(now - self.t, 1)
+        self.t = now
+        print(f"[phase] {name} {self.times[name]} s")
 
 
 def timed_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
@@ -186,10 +218,11 @@ def same_diagnosis(a, b, fleet_size: int) -> None:
         raise AssertionError("plan ladders differ")
 
 
-def reset_counts(K, K2) -> None:
-    """Set both kernels' launch counts to 0, just before a path runs."""
+def reset_counts(K, K2, K3) -> None:
+    """Set every kernel's launch count to 0, just before a path runs."""
     K.pattern_summary.launches = 0
     K2.flash_attention.launches = 0
+    K3.ssd_scan.launches = 0
 
 
 def _rand(g, shape, dtype):
@@ -231,7 +264,7 @@ def k2_checks(K2) -> dict:
         worst[dtype] = max(worst[dtype], err)
         extra = ""
         if dtype == torch.bfloat16:
-            ratio = float((diff / (K2_BF16_ATOL + K2_BF16_RTOL
+            ratio = float((diff / (BF16_ATOL + BF16_RTOL
                                    * ref.float().abs())).max())
             bf16_ratio = max(bf16_ratio, ratio)
             extra = (f", max |ref| {float(ref.float().abs().max()):.3g}, "
@@ -241,7 +274,7 @@ def k2_checks(K2) -> dict:
               f"{lse_err:.3g}{extra}")
         del q, k, v, out, lse, ref, ref_lse, diff
     print(f"[k2 check] worst bf16 {worst[torch.bfloat16]:.4g} at "
-          f"{bf16_ratio:.3g} of its limit ({K2_BF16_ATOL} + {K2_BF16_RTOL} "
+          f"{bf16_ratio:.3g} of its limit ({BF16_ATOL} + {BF16_RTOL} "
           f"* |ref|), worst f32 {worst[torch.float32]:.3g} (tolerance "
           f"{K2_F32_TOL})")
     if bf16_ratio > 1.0 or worst[torch.float32] > K2_F32_TOL:
@@ -377,32 +410,130 @@ def logits_ce_ms(L, flush) -> float:
     return timed_ms(run, 3, flush)
 
 
-def trainer_phase(K, K2, ARCHS, Trainer, TrainConfig, DataConfig, OptConfig,
-                  Tracer) -> dict:
-    """The full gemma2-2b trainer: 5 instrumented steps on the card."""
-    cfg = ARCHS["gemma2-2b"]
-    tr = Trainer(cfg, DataConfig(batch=1, seq_len=TRAIN_SEQ), OptConfig(),
+def k3_inputs(shape, seed: int, dtype, ranges: str = "model"):
+    """x, B, C standard normal in ``dtype``; dt and A f32, drawn as the
+    reference's kernel tests draw them (``ranges="test"``: softplus of a
+    normal, -exp(U[0, 1])) or from mamba2's init ranges (``"model"``: dt
+    log-uniform in [1e-3, 0.1], A in [-16, -1]), or at the far end of those
+    ranges (``"overflow"``: dt 0.1, A -16)."""
+    B, S, H, P, G, N, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = _rand(g, (B, S, H, P), dtype)
+    Bm, Cm = _rand(g, (B, S, G, N), dtype), _rand(g, (B, S, G, N), dtype)
+    if ranges == "test":
+        dt = torch.nn.functional.softplus(_rand(g, (B, S, H), torch.float32))
+        A = -torch.exp(torch.rand(H, generator=g, device="cuda"))
+    elif ranges == "model":
+        u = torch.rand((B, S, H), generator=g, device="cuda")
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        A = -(1.0 + 15.0 * torch.rand(H, generator=g, device="cuda"))
+    else:
+        dt = torch.full((B, S, H), 0.1, device="cuda")
+        A = torch.full((H,), -16.0, device="cuda")
+    return x, dt, A, Bm, Cm
+
+
+def k3_checks(K3) -> dict:
+    """K3 against its plain version: f32 on the reference's kernel-test
+    shapes (max |err| / max |ref| < 2e-5); bf16
+    at mamba2-2.7b's layer shape from its init ranges and at the overflow
+    end of them (elementwise within one bf16 step), the overflow case
+    finite."""
+    worst_f32, worst_bf16, ratio_bf16 = 0.0, 0.0, 0.0
+    for i, shape in enumerate(K3_TEST_SHAPES):
+        ins = k3_inputs(shape, i, torch.float32, "test")
+        ref = K3.ssd_scan_reference(*ins, shape[-1])
+        out = K3.ssd_scan.run(*ins, shape[-1])
+        torch.cuda.synchronize()
+        if not (torch.isfinite(out).all() and out.shape == ref.shape):
+            raise AssertionError(f"K3 output not finite or misshapen {shape}")
+        rel = float((out - ref).abs().max() / ref.abs().max())
+        worst_f32 = max(worst_f32, rel)
+        print(f"[k3 check] kernel test f32 (B,S,H,P,G,N,Q)={shape} P slice "
+              f"{K3.p_split_for(shape[3])}: max |err| / max |ref| {rel:.3g}")
+    for ranges in ("model", "overflow"):
+        ins = k3_inputs(MAMBA_LAYER, 7, torch.bfloat16, ranges)
+        ref = K3.ssd_scan_reference(*ins, MAMBA_LAYER[-1]).float()
+        out = K3.ssd_scan.run(*ins, MAMBA_LAYER[-1])
+        torch.cuda.synchronize()
+        if not (torch.isfinite(out).all() and out.dtype == torch.bfloat16
+                and out.shape == ref.shape):
+            raise AssertionError(f"K3 output not finite or misshapen "
+                                 f"({ranges})")
+        diff = (out.float() - ref).abs()
+        ratio = float((diff / (BF16_ATOL + BF16_RTOL
+                               * ref.abs())).max())
+        worst_bf16 = max(worst_bf16, float(diff.max()))
+        ratio_bf16 = max(ratio_bf16, ratio)
+        print(f"[k3 check] mamba2-2.7b layer bf16 (B,S,H,P,G,N,Q)="
+              f"{MAMBA_LAYER}, {ranges} dt/A: finite, max |err| "
+              f"{float(diff.max()):.3g}, max |ref| "
+              f"{float(ref.abs().max()):.3g}, worst err / limit {ratio:.3g}")
+        del ins, ref, out, diff
+    print(f"[k3 check] worst f32 {worst_f32:.3g} (tolerance {K3_F32_TOL}), "
+          f"worst bf16 {worst_bf16:.4g} at {ratio_bf16:.3g} of its limit "
+          f"({BF16_ATOL} + {BF16_RTOL} * |ref|)")
+    if worst_f32 >= K3_F32_TOL or ratio_bf16 > 1.0:
+        raise AssertionError("K3 disagrees with its plain version")
+    return {"f32": worst_f32, "bf16": worst_bf16}
+
+
+def k3_timing(K3, flush) -> dict:
+    """K3 at mamba2-2.7b's layer shape (bf16, the init's dt/A ranges) by
+    CUDA events beside its bound and its plain version, and the plain SSD
+    backward the trainer runs for one layer."""
+    ins = k3_inputs(MAMBA_LAYER, 11, torch.bfloat16, "model")
+    Q = MAMBA_LAYER[-1]
+    kms = timed_ms(lambda: K3.ssd_scan.run(*ins, Q), TIMED_LAUNCHES, flush)
+    pms = timed_ms(lambda: K3.ssd_scan_reference(*ins, Q), 3, flush)
+    bms, by = K3.bound_ms(ins[0], ins[1], ins[3], ins[4], Q)
+    split = K3.p_split_for(MAMBA_LAYER[3])
+    grad_ins = [t.detach().requires_grad_(True) for t in ins]
+    dy = torch.randn_like(ins[0])
+
+    def backward():
+        with torch.enable_grad():
+            y = K3.ssd_scan_reference(*grad_ins, Q)
+            torch.autograd.grad(y, grad_ins, dy)
+    bwd = timed_ms(backward, 3, flush)
+    print(f"[k3 time] mamba2-2.7b layer bf16 (B,S,H,P,G,N,Q)={MAMBA_LAYER}: "
+          f"kernel {kms:.4f} ms (P slice {split}), bound {bms:.4f} ms by {by} "
+          f"({bms / kms:.2%} of bound), plain {pms:.3f} ms; plain "
+          f"SSD backward (recompute under autograd) {bwd:.3f} ms a layer; "
+          f"library: none (no PyTorch call computes the SSD scan)")
+    del ins, grad_ins, dy
+    return dict(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                backward_ms=bwd)
+
+
+def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
+                  TrainConfig, DataConfig, OptConfig, Tracer) -> dict:
+    """The full trainer of ``cfg``: 5 instrumented steps of batch 1 x
+    ``seq`` tokens on the card.  ``counter`` is the wrapper of the kernel
+    the path runs once a layer (``label`` names it, ``fragment`` is a piece
+    of its device-side name for the profiler)."""
+    tr = Trainer(cfg, DataConfig(batch=1, seq_len=seq), OptConfig(),
                  TrainConfig(perftracker=False), device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     params, opt_state, _ = tr.init_state()
     torch.cuda.synchronize()
     state_bytes = torch.cuda.memory_allocated()
-    print(f"[trainer] gemma2-2b: {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, vocab {cfg.vocab_size}, batch 1 x {TRAIN_SEQ} "
+    print(f"{tag} {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, batch 1 x {seq} "
           f"tokens; init {time.perf_counter() - t:.2f} s, state "
           f"{state_bytes} bytes on the card")
     tracer = Tracer(worker=0)
     tracer.start_window()
-    reset_counts(K, K2)
+    reset_counts(*kernels)
     per_step, rows = [], []
     for i in range(TRAIN_STEPS):
-        before = K2.flash_attention.launches
+        before = counter.launches
         params, opt_state, m = tr.train_iteration(params, opt_state,
                                                   tracer=tracer)
-        per_step.append(K2.flash_attention.launches - before)
+        per_step.append(counter.launches - before)
         rows.append((float(m["loss"]), float(m["grad_norm"])))
-    launches = K2.flash_attention.launches
+    launches = counter.launches
     prof = tracer.stop_window()
     peak = torch.cuda.max_memory_allocated()
     top = sorted((e for e in prof.events if e.depth == 1),
@@ -416,16 +547,16 @@ def trainer_phase(K, K2, ARCHS, Trainer, TrainConfig, DataConfig, OptConfig,
         d, s, o = (top[3 * i + j].duration for j in range(3))
         steps.append(dict(dataloader_next_s=d, train_step_s=s,
                           optimizer_step_s=o, loss=loss, grad_norm=gnorm))
-        print(f"[trainer] step {i + 1}: dataloader.next {d:.4f} s, "
+        print(f"{tag} step {i + 1}: dataloader.next {d:.4f} s, "
               f"train.step {s:.4f} s, optimizer.step {o:.4f} s; loss "
-              f"{loss:.4f} grad norm {gnorm:.4f}; K2 launches "
+              f"{loss:.4f} grad norm {gnorm:.4f}; {label} launches "
               f"{per_step[i]}; max memory allocated {peak} bytes")
     if not all(math.isfinite(x) for r in rows for x in r):
         raise AssertionError("trainer loss or grad norm not finite")
     if per_step != [cfg.num_layers] * TRAIN_STEPS:
-        raise AssertionError(f"K2 launches per step {per_step}, expected "
-                             f"{cfg.num_layers}")
-    profile = step_profile(tr, params, opt_state)
+        raise AssertionError(f"{label} launches per step {per_step}, "
+                             f"expected {cfg.num_layers}")
+    profile = step_profile(tr, params, opt_state, tag, label, fragment)
     tr.loader.close()
     del tr, params, opt_state, m
     gc.collect()
@@ -438,7 +569,7 @@ def trainer_phase(K, K2, ARCHS, Trainer, TrainConfig, DataConfig, OptConfig,
 GEMM_NAMES = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "cublas")
 
 
-def step_profile(tr, params, opt_state) -> dict:
+def step_profile(tr, params, opt_state, tag, label, fragment) -> dict:
     """One more full-depth step (after the counted ones) under
     ``torch.profiler``: device busy time by kernel class against the step's
     wall time, whose difference is the card's idle share."""
@@ -449,30 +580,37 @@ def step_profile(tr, params, opt_state) -> dict:
         tr.train_iteration(params, opt_state)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    # the raw device activities (kernels, copies, fills), read without
+    # building the op tree that key_averages() builds: at mamba2-2.7b's
+    # 64 layers that took 29 s on the host
+    t = time.perf_counter()
     by_name = {}
-    for e in prof.key_averages():    # the kernels' own rows, not the ops'
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation():
+            by_name[e.name()] = by_name.get(e.name(), 0.0) \
+                + e.duration_ns() / 1e6
     busy = sum(by_name.values())
-    k2 = sum(v for k, v in by_name.items() if "flash_fwd" in k)
+    own = sum(v for k, v in by_name.items() if fragment in k)
     gemm = sum(v for k, v in by_name.items()
                if any(g in k for g in GEMM_NAMES))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ptag = tag.replace("trainer", "profile")
+    print(f"{ptag} reading the trace took {time.perf_counter() - t:.1f} s")
     if busy == 0:
-        print("[profile] the profiler recorded no device time: not measured")
+        print(f"{ptag} the profiler recorded no device time: not measured")
     else:
-        print(f"[profile] one full-depth step under torch.profiler: wall "
+        print(f"{ptag} one full-depth step under torch.profiler: wall "
               f"{wall_ms:.2f} ms, device busy {busy:.2f} ms (idle share "
-              f"{1 - busy / wall_ms:.2%}); K2 {k2:.2f} ms, GEMM kernels "
-              f"{gemm:.2f} ms, other kernels {busy - k2 - gemm:.2f} ms")
+              f"{1 - busy / wall_ms:.2%}); {label} {own:.2f} ms, GEMM "
+              f"kernels {gemm:.2f} ms, other kernels "
+              f"{busy - own - gemm:.2f} ms")
         for name, ms in top:
-            print(f"[profile]   {ms:9.3f} ms  {name[:110]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy, k2_ms=k2, gemm_ms=gemm)
+            print(f"{ptag}   {ms:9.3f} ms  {name[:110]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy, kernel_ms=own, gemm_ms=gemm)
 
 
-def trainer_fleet_phase(K, K2, ARCHS, TrainerWorkload, DataloaderBurn,
+def trainer_fleet_phase(K, K2, K3, ARCHS, TrainerWorkload, DataloaderBurn,
                         StepThrottle, TrainConfig, DataConfig, OptConfig,
                         PerfTrackerService, plan_mitigations,
                         summarize_profile) -> dict:
@@ -495,7 +633,7 @@ def trainer_fleet_phase(K, K2, ARCHS, TrainerWorkload, DataloaderBurn,
               "replace_hosts")]
     for i, (fault, fns, workers, action) in enumerate(cases):
         name = type(fault).__name__
-        reset_counts(K, K2)
+        reset_counts(K, K2, K3)
         wd = wl.run_window(i, [fault], FLEET_ITERS, None)
         k2 = K2.flash_attention.launches
         samples = [len(p.streams["cpu"].values) for p in wd.profiles]
@@ -507,7 +645,7 @@ def trainer_fleet_phase(K, K2, ARCHS, TrainerWorkload, DataloaderBurn,
             print(f"[trainer fleet] {name} {fname} (beta, mu, sigma) per "
                   f"worker: {bms}")
         svc = PerfTrackerService(family="host")
-        reset_counts(K, K2)
+        reset_counts(K, K2, K3)
         res = svc.diagnose_profiles(wd.profiles)
         k1 = K.pattern_summary.launches
         flagged = {d.abnormality.function: d.abnormality.workers.tolist()
@@ -548,6 +686,7 @@ def main() -> int:
         from repro_torch.kernels import _build
         from repro_torch.kernels import flash_attention as K2
         from repro_torch.kernels import pattern_summary as K
+        from repro_torch.kernels import ssd_scan as K3
         from repro_torch.summarize.engine import summarize_profile
         from repro_torch.summarize.fleet import pack_fleet
         from repro_torch.configs.registry import ARCHS
@@ -564,6 +703,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    clock = PhaseClock()
     card = gpu_line()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -572,21 +712,26 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("fp32 matmuls must not run in TF32")
 
-    # -- 1. build both kernels at once ----------------------------------------
+    # -- 1. build the three kernels at once ------------------------------------
     t = time.perf_counter()
     libs = _build.build_all([(K.SOURCE, "k1_pattern_summary"),
-                             (K2.SOURCE, "k2_flash_attention")])
+                             (K2.SOURCE, "k2_flash_attention"),
+                             (K3.SOURCE, "k3_ssd_scan")])
     print(f"[build] {[lib.name for lib in libs]} in "
           f"{time.perf_counter() - t:.2f}s (parallel nvcc)")
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip())
     K.pattern_summary.library()
     K2.flash_attention.library()
+    K3.ssd_scan.library()
     smem = {dt: [K2.flash_attention.smem_bytes(dt, d) for d in K2.HEAD_DIMS]
             for dt in (torch.bfloat16, torch.float32)}
     print(f"[build] K2 dynamic shared memory per block, bytes: bf16 "
           f"{smem[torch.bfloat16]}, f32 {smem[torch.float32]} for D in "
           f"{K2.HEAD_DIMS}")
+    print(f"[build] K3 dynamic shared memory per block at mamba2-2.7b's "
+          f"layer (N 128, Q 256, P slice {K3.p_split_for(64)}): "
+          f"{K3.ssd_scan.smem_bytes(128, 256, 64)} bytes")
 
     # the fleet at the paper's window: 256 workers, 20 s at 10 kHz
     t = time.perf_counter()
@@ -604,6 +749,8 @@ def main() -> int:
     print(f"[fleet] host layers: simulate {sim_s:.3f} s, pack_fleet "
           f"{pack_s:.3f} s, critical-path sweep {crit_s:.3f} s; groups "
           f"{[g.u.shape for g in groups]}")
+
+    clock.lap("build and fleet simulation")
 
     # -- 2. kernel vs plain version on the card -------------------------------
     rng = np.random.default_rng(0)
@@ -643,6 +790,8 @@ def main() -> int:
     print(f"[time] K1 per diagnosis (all groups): kernel {k_ms:.4f} ms, "
           f"bound {b_ms:.4f} ms, plain {p_ms:.3f} ms, h2d {h_ms:.3f} ms")
 
+    clock.lap("K1 check and time")
+
     # -- 3. ring fault (examples/diagnose_ring_fault.py) ----------------------
     ring = FleetSimulator(SimConfig(n_workers=32, window_s=2.0, rate_hz=2000,
                                     seed=11),
@@ -655,7 +804,7 @@ def main() -> int:
         raise AssertionError("the detector did not trigger on the ring fault")
     ring_profiles = ring.profile_window()
     n_ring_groups = len(pack_fleet(ring_profiles).groups)
-    reset_counts(K, K2)
+    reset_counts(K, K2, K3)
     res = svc.diagnose_profiles(ring_profiles, trigger=trig)
     ring_launches = K.pattern_summary.launches
     flagged = {d.abnormality.function: d.abnormality.workers.tolist()
@@ -671,7 +820,7 @@ def main() -> int:
     # -- 4. fleet at the paper's window: the main path ------------------------
     svc = PerfTrackerService()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(K, K2)
+    reset_counts(K, K2, K3)
     t = time.perf_counter()
     res = svc.diagnose_profiles(profiles)
     wall = time.perf_counter() - t
@@ -700,9 +849,11 @@ def main() -> int:
     print("[fleet] cuda diagnosis == host numpy diagnosis")
 
     del profiles, groups, res, host
+    clock.lap("ring fault and fleet diagnosis")
 
     # -- 5. K2 against its plain version, and its times -----------------------
     k2_err = k2_checks(K2)
+    clock.lap("K2 check")
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device="cuda")
     k2_times = k2_timing(K2, flush)
@@ -719,18 +870,46 @@ def main() -> int:
           f"/ global {bwd['global']:.3f} ms), LM head + softcap + CE "
           f"forward+backward {head:.3f} ms")
     torch.cuda.empty_cache()
+    clock.lap("K2 time and breakdown")
 
     # -- 6. the full gemma2-2b trainer: the main path of K2 -------------------
-    tr = trainer_phase(K, K2, ARCHS, Trainer, TrainConfig, DataConfig,
-                       OptConfig, Tracer)
+    tr = trainer_phase("[trainer]", ARCHS["gemma2-2b"], TRAIN_SEQ,
+                       (K, K2, K3), "K2", K2.flash_attention, "flash_fwd",
+                       Trainer, TrainConfig, DataConfig, OptConfig, Tracer)
+    clock.lap("gemma2 trainer")
 
     # -- 7. the trainer fleet, diagnosed on the card --------------------------
-    trainer_fleet_phase(K, K2, ARCHS, TrainerWorkload, DataloaderBurn,
+    trainer_fleet_phase(K, K2, K3, ARCHS, TrainerWorkload, DataloaderBurn,
                         StepThrottle, TrainConfig, DataConfig, OptConfig,
                         PerfTrackerService, plan_mitigations,
                         summarize_profile)
+    clock.lap("trainer fleet")
 
-    # -- 8. kernels line, card, contract line ---------------------------------
+    # -- 8. K3 against its plain version, and its times -----------------------
+    k3_err = k3_checks(K3)
+    clock.lap("K3 check")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    k3_time = k3_timing(K3, flush)
+    del flush
+    torch.cuda.empty_cache()
+    clock.lap("K3 time")
+
+    # -- 9. the full mamba2-2.7b trainer: the main path of K3 -----------------
+    mcfg = ARCHS[MAMBA]
+    mtr = trainer_phase("[mamba2 trainer]", mcfg, MAMBA_SEQ, (K, K2, K3),
+                        "K3", K3.ssd_scan, "ssd_fwd", Trainer, TrainConfig,
+                        DataConfig, OptConfig, Tracer)
+    print(f"[mamba2 trainer] per step at {MAMBA_SEQ} tokens: K3 forward "
+          f"{mcfg.num_layers * k3_time['ms']:.3f} ms ({mcfg.num_layers} "
+          f"launches), plain SSD backward "
+          f"{mcfg.num_layers * k3_time['backward_ms']:.3f} ms "
+          f"({mcfg.num_layers} layers, timed alone); K3 launches in the "
+          f"{TRAIN_STEPS} counted steps {mtr['launches']}; peak "
+          f"{mtr['peak']} bytes, state {mtr['state_bytes']} bytes")
+    clock.lap("mamba2 trainer")
+
+    # -- 10. kernels line, card, contract line --------------------------------
     k2_main = k2_times[(TRAIN_SEQ, "global")]
     print(json.dumps({"kernels": [{
         "name": "pattern_summary",
@@ -766,8 +945,26 @@ def main() -> int:
         "library_max_abs_err": k2_main["library_err"],
         "softcap0_ms": k2_main["ms_softcap0"],
         "softcap0_sdpa_ms": k2_main["sdpa_ms"],
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:25",
+        "launches": mtr["launches"],
+        "shape": "bf16 x (1, 2048, 80, 64), B/C (1, 2048, 1, 128), dt f32, "
+                 "chunk 256: one mamba2-2.7b layer",
+        "max_abs_err": k3_err["bf16"],
+        "max_rel_err_f32": k3_err["f32"],
+        "ms": k3_time["ms"],
+        "plain_ms": k3_time["plain_ms"],
+        "bound_ms": k3_time["bound_ms"],
+        "bound_by": k3_time["bound_by"],
+        "library_ms": None,
+        "library_call": "none: no PyTorch call computes the SSD scan",
+        "plain_backward_ms": k3_time["backward_ms"],
     }]}))
-    print(f"[done] {time.perf_counter() - t_start:.1f}s")
+    print(f"[done] {time.perf_counter() - t_start:.1f}s; by phase "
+          f"{clock.times}")
     print(card)
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -5,9 +5,11 @@ reference's ``Transformer.init`` returns, with every leaf already turned
 into a numpy array by the caller (``np.asarray``; bf16 leaves arrive as
 ``ml_dtypes.bfloat16``), and returns this port's parameters: the same names,
 with the reference's stacked layer axes split into one dict per layer
-(``(L, ...)`` -> ``blocks[i]``; gemma2's ``(L/2, 2, ...)`` -> ``blocks[2i+j]``).
-bf16 goes through float32, so the values are carried bit for bit.  Nothing
-of JAX is imported: the tree is plain dicts of numpy arrays.
+(``(L, ...)`` -> ``blocks[i]``; gemma2's ``(L/2, 2, ...)`` -> ``blocks[2i+j]``;
+a mamba2 layer is ``{"ln", "mamba"}``).  Every leaf keeps its reference
+dtype: mamba2's f32 ``A_log``, ``D`` and ``dt_bias`` stay f32 under bf16
+parameters, and bf16 goes through float32, so its values are carried bit for
+bit.  Nothing of JAX is imported: the tree is plain dicts of numpy arrays.
 """
 from __future__ import annotations
 
@@ -16,14 +18,13 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.models.layers import dtype_of
 
-
-def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+def _tensor(a, device) -> torch.Tensor:
     arr = np.asarray(a)
-    if arr.dtype.kind not in "fiub":           # ml_dtypes.bfloat16 and kin
-        arr = arr.astype(np.float32)
-    return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)
+    if arr.dtype.name == "bfloat16":           # ml_dtypes.bfloat16
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device=device)
 
 
 def _map(tree, fn):
@@ -35,21 +36,19 @@ def _map(tree, fn):
 def params_from_reference(tree: Dict[str, Any], cfg, device=None
                           ) -> Dict[str, Any]:
     """See the module docstring.  ``cfg`` is the port's ``ModelConfig`` of
-    the same architecture (a ``dense``/``vlm``/``audio`` family)."""
-    dt = dtype_of(cfg.param_dtype)
+    the same architecture (a ``dense``/``vlm``/``audio``/``ssm`` family)."""
     device = torch.device("cpu" if device is None else device)
     out: Dict[str, Any] = {}
     for key, sub in tree.items():
         if key != "blocks":
-            out[key] = _map(sub, lambda a: _tensor(a, dt, device))
+            out[key] = _map(sub, lambda a: _tensor(a, device))
             continue
         L = cfg.num_layers
         if cfg.local_global:
             take = lambda a, i: np.asarray(a)[i // 2, i % 2]  # noqa: E731
         else:
             take = lambda a, i: np.asarray(a)[i]              # noqa: E731
-        out["blocks"] = [_map(sub, lambda a, i=i: _tensor(take(a, i), dt,
-                                                          device))
+        out["blocks"] = [_map(sub, lambda a, i=i: _tensor(take(a, i), device))
                          for i in range(L)]
     return out
 

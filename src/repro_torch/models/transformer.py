@@ -1,5 +1,5 @@
-"""Model assembly for the ``dense``, ``vlm`` and ``audio`` families, gemma2's
-local/global layer pairs included (port of the reference's
+"""Model assembly for the ``dense``, ``vlm``, ``audio`` and ``ssm`` families,
+gemma2's local/global layer pairs included (port of the reference's
 ``repro/models/transformer.py``).
 
 Parameters are nested dicts of tensors with the reference's names.  The
@@ -7,10 +7,11 @@ reference stacks layers on a leading axis and runs them with ``lax.scan``;
 here ``params["blocks"]`` is a list with one dict per layer, in layer order
 (gemma2's pair ``i`` is layers ``2i``, local, and ``2i + 1``, global), and a
 Python loop runs them.  ``models.convert.params_from_reference`` carries the
-reference's own parameters across.
+reference's own parameters across.  An ``ssm`` layer (mamba2) is
+``{"ln", "mamba"}`` and runs K3 through ``models.ssm.apply_mamba2``.
 
-Not ported yet (each raises ``NotImplementedError``): the ``moe``, ``ssm``
-and ``hybrid`` families and MLA attention (ROADMAP Queue 1 item 7), remat
+Not ported yet (each raises ``NotImplementedError``): the ``moe`` and
+``hybrid`` families and MLA attention (ROADMAP Queue 1 item 7), remat
 other than ``"none"``, balanced causal folding, and the ``dist`` context
 (Queue 1 item 11).
 """
@@ -22,10 +23,11 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 Tensor = torch.Tensor
 
-FAMILIES = ("dense", "vlm", "audio")
+FAMILIES = ("dense", "vlm", "audio", "ssm")
 
 
 def _not_ported(what: str, item: int = 7) -> NotImplementedError:
@@ -91,6 +93,23 @@ def decode_attn_block(bp, x, cfg, pos, cache, spec, ring=False):
     return x + m, {"k": kc, "v": vc}
 
 
+def init_mamba_block(gen, cfg, device=None):
+    dt = L.dtype_of(cfg.param_dtype)
+    return {"ln": L.init_norm(cfg.norm, cfg.d_model, dt, device),
+            "mamba": S.init_mamba2(gen, cfg, dt, device)}
+
+
+def apply_mamba_block(bp, x, cfg):
+    h = L.apply_norm(bp["ln"], x, cfg.norm, cfg.norm_eps)
+    return x + S.apply_mamba2(bp["mamba"], h, cfg)
+
+
+def decode_mamba_block(bp, x, cfg, cache):
+    h = L.apply_norm(bp["ln"], x, cfg.norm, cfg.norm_eps)
+    y, new_cache = S.mamba2_decode(bp["mamba"], h, cfg, cache)
+    return x + y, new_cache
+
+
 # ---------------------------------------------------------------------------
 # Transformer
 # ---------------------------------------------------------------------------
@@ -134,7 +153,9 @@ class Transformer:
                                          device=device)
         if cfg.local_global and cfg.num_layers % 2:
             raise ValueError("local/global pairs need an even layer count")
-        p["blocks"] = [init_attn_block(gen, cfg, device)
+        init_block = init_mamba_block if cfg.family == "ssm" \
+            else init_attn_block
+        p["blocks"] = [init_block(gen, cfg, device)
                        for _ in range(cfg.num_layers)]
         return p
 
@@ -162,9 +183,15 @@ class Transformer:
     # -- forward (train / prefill) -------------------------------------------
     def forward(self, p, batch, collect_cache: bool = False):
         """Returns (hidden (B,S,d), aux_stats (None for these families),
-        per-layer [(k, v)] or None)."""
+        per-layer [(k, v)] or None; an ``ssm`` model collects no cache, as
+        in the reference)."""
         cfg = self.cfg
         x = self._embed_inputs(p, batch)
+        if cfg.family == "ssm":
+            for bp in p["blocks"]:
+                x = apply_mamba_block(bp, x, cfg)
+            x = L.apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
+            return x, None, ([] if collect_cache else None)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         kvs = []
         for bp, spec in zip(p["blocks"], self.layer_specs()):
@@ -201,9 +228,14 @@ class Transformer:
                    ) -> List[Dict[str, Tensor]]:
         """One ``{"k", "v"}`` cache ``(B, len, KV, D)`` per layer.  gemma2's
         global layers hold ``max_len``; a sliding-window model's layers hold
-        the window (a ring) once ``max_len`` exceeds it."""
+        the window (a ring) once ``max_len`` exceeds it.  An ``ssm`` layer
+        holds its conv windows and its f32 state instead
+        (``ssm.init_ssm_cache``)."""
         cfg = self.cfg
         dt = L.dtype_of(cfg.dtype)
+        if cfg.family == "ssm":
+            return [S.init_ssm_cache(cfg, batch, dt, device)
+                    for _ in range(cfg.num_layers)]
         kvl = self.kv_len(max_len)
         shape = (batch, kvl, cfg.num_kv_heads, cfg.head_dim)
         return [{"k": torch.zeros(shape, dtype=dt, device=device),
@@ -222,6 +254,12 @@ class Transformer:
         in place; returns (logits (B,1,V), cache)."""
         cfg = self.cfg
         x = self._embed_inputs(p, batch)
+        if cfg.family == "ssm":
+            for bp, c in zip(p["blocks"], cache):
+                x, new = decode_mamba_block(bp, x, cfg, c)
+                c.update(new)
+            x = L.apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
+            return self.logits(p, x), cache
         ring = self._ring_for(cache)
         for bp, c, spec in zip(p["blocks"], cache, self.layer_specs()):
             x, _ = decode_attn_block(bp, x, cfg, pos, c, spec, ring=ring)

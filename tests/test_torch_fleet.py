@@ -5,6 +5,8 @@ The six-fault matrix of tests/test_fleet.py and a healthy fleet, at W=32,
 its service on the ``numpy`` backend gives the reference's diagnoses bitwise;
 on the ``torch`` backend (the plain version of kernel K1) the same
 functions, kinds, workers, hints, reasons and plans, with patterns to 1e-6.
+A 4-worker trainer window shaped as the card records it (step phases with
+no sampled stream) gives the same diagnosis and plan order in both.
 The port always runs on the CPU here.
 """
 import numpy as np
@@ -12,6 +14,10 @@ import pytest
 
 from repro.core import faults as RF
 from repro.core.critical_path import fleet_critical_times as ref_fct
+from repro.core.events import FunctionEvent as RefEvent
+from repro.core.events import Kind as RefKind
+from repro.core.events import SampleStream as RefStream
+from repro.core.events import WorkerProfile as RefProfile
 from repro.core.mitigation import plan_mitigations as ref_plans
 from repro.core.service import PerfTrackerService as RefService
 from repro.core.simulation import FleetSimulator as RefSim
@@ -161,3 +167,68 @@ def test_wire_mode_and_batches_wait_for_the_transport_slice():
         svc.diagnose_batch(None)
     with pytest.raises(ValueError):
         svc.diagnose_profiles([], mode="bogus")
+
+
+#: (dataloader.next, train.step, optimizer.step) seconds of one iteration:
+#: healthy, and the faulty worker under each live fault.  They give the
+#: betas the full-width trainer fleet of chip_smoke.py showed on an H100:
+#: healthy 0.72 / 0.25 for the two step phases, StepThrottle's worker 2
+#: 0.86 / 0.13, DataloaderBurn's worker 1 0.15 / 0.10.
+TRAINER_HEALTHY = (0.003, 0.072, 0.025)
+TRAINER_FAULTS = {"StepThrottle": (2, (0.003, 0.167, 0.025)),
+                  "DataloaderBurn": (1, (0.360, 0.072, 0.048))}
+
+
+def _trainer_window(fault, iters=8, rate_hz=100.0, seed=0):
+    """One 4-worker trainer window in the reference's types, as the card
+    records it: ``dataloader.next`` reads the cpu stream, the step phases
+    carry resource ``""`` (no sampled device stream, so beta only)."""
+    rng = np.random.default_rng(seed)
+    bad, durations = TRAINER_FAULTS[fault]
+    phases = (("dataloader.next", RefKind.PYTHON),
+              ("train.step", RefKind.GPU), ("optimizer.step", RefKind.GPU))
+    profiles = []
+    for w in range(4):
+        t, events = 0.0, []
+        for _ in range(iters):
+            for (name, kind), d in zip(phases, durations if w == bad
+                                       else TRAINER_HEALTHY):
+                d *= 1.0 + 0.02 * rng.standard_normal()
+                events.append(RefEvent(name, kind, t, t + d, worker=w,
+                                       depth=1))
+                t += d
+        times = np.arange(int(np.ceil(t * rate_hz))) / rate_hz
+        cpu = rng.uniform(0.05, 0.15, times.size)
+        for e in events:
+            if e.name == "dataloader.next":
+                inside = (times >= e.start) & (times < e.end)
+                cpu[inside] = rng.uniform(0.9, 1.0, int(inside.sum()))
+        profiles.append(RefProfile(
+            worker=w, window=(0.0, t), events=events,
+            streams={"cpu": RefStream(rate_hz, 0.0, cpu.astype(np.float32))}))
+    return profiles
+
+
+@pytest.mark.parametrize("fault", sorted(TRAINER_FAULTS))
+def test_trainer_window_without_device_stream_diagnosed_as_reference(fault):
+    """The two trainer-fleet outcomes seen on the card are the reference's
+    own: on this window both packages flag ``optimizer.step`` [2] (the
+    differential rule) under StepThrottle, not ``train.step``, and rank
+    ``replace_hosts [1]`` ahead of ``migrate_dataloader`` under
+    DataloaderBurn."""
+    ref = _trainer_window(fault)
+    want = RefService(family="host").diagnose_profiles(ref, mode="fleet")
+    got = PerfTrackerService(family="host", device="cpu").diagnose_profiles(
+        [profile_from_reference(p) for p in ref], mode="fleet")
+    assert_same_diagnosis(got, want, patterns_atol=1e-6)
+    flagged = [(d.abnormality.function, d.abnormality.workers.tolist(),
+                d.abnormality.reason) for d in got.diagnoses]
+    plans = [(p.action.value, list(p.workers))
+             for p in plan_mitigations(got.diagnoses, 4)]
+    if fault == "StepThrottle":
+        assert flagged == [("optimizer.step", [2], "differential")]
+        assert plans == [("replace_hosts", [2])]
+    else:
+        assert flagged[0] == ("dataloader.next", [1],
+                              "expectation+differential")
+        assert plans == [("replace_hosts", [1]), ("migrate_dataloader", [])]

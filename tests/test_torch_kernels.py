@@ -1,5 +1,5 @@
-"""Kernels K1 and K2: wrappers and plain versions, and (marked ``gpu``) each
-kernel against its plain version on a CUDA device.
+"""Kernels K1, K2 and K3: wrappers and plain versions, and (marked ``gpu``)
+each kernel against its plain version on a CUDA device.
 
 This file imports neither JAX nor the reference package, so it also runs on
 the card's machine:  ``python -m pytest -q -m gpu tests/test_torch_kernels.py``.
@@ -14,6 +14,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.pattern_summary import (bound_ms, pattern_summary,
                                                  pattern_summary_reference,
                                                  threads_for)
+from repro_torch.kernels.ssd_scan import (ssd_oracle, ssd_scan,
+                                          ssd_scan_reference)
 
 from _torch_inputs import EDGE_EXPECTED, case, edge_rows, long_row, matrices
 # autouse fixture: torch on one CPU thread
@@ -149,3 +151,117 @@ def test_k2_reads_strided_inputs_and_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         flash_attention(q.transpose(1, 3), k.transpose(1, 3),
                         v.transpose(1, 3))
+
+
+#: (B, S, H, P, G, N, chunk): the SSD shapes of tests/test_kernels.py
+K3_TEST_SHAPES = [(1, 64, 2, 16, 1, 8, 16), (2, 128, 4, 32, 2, 16, 32),
+                  (1, 128, 4, 64, 4, 32, 64), (1, 32, 2, 16, 2, 16, 32)]
+#: a ragged chunk (Q not a multiple of the kernel's 64-row tiles), the
+#: longest chunk, and mamba2-2.7b's widths on fewer heads
+K3_MODEL_SHAPES = [(2, 192, 3, 32, 3, 24, 96), (1, 1024, 1, 16, 1, 16, 1024),
+                   (1, 512, 4, 64, 1, 128, 256)]
+
+
+def _ssd(shape, seed, dtype, model_ranges=False):
+    """x, B, C standard normal; dt and A as tests/test_kernels.py draws
+    them, or from mamba2's init ranges (dt log-uniform in [1e-3, 0.1], A
+    in [-16, -1])."""
+    B, S, H, P, G, N, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device="cuda")
+    if model_ranges:
+        u = torch.rand((B, S, H), generator=g, device="cuda")
+        dt = torch.exp(u * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
+        A = -(1.0 + 15.0 * torch.rand(H, generator=g, device="cuda"))
+    else:
+        dt = torch.nn.functional.softplus(randn(B, S, H))
+        A = -torch.exp(torch.rand(H, generator=g, device="cuda"))
+    return (randn(B, S, H, P).to(dtype), dt, A, randn(B, S, G, N).to(dtype),
+            randn(B, S, G, N).to(dtype))
+
+
+def _cum_step(dt, A, chunk: int) -> float:
+    """float32's step at the largest ``|cumsum(dt * A)|`` within a chunk."""
+    B, S, H = dt.shape
+    Q = min(chunk, S)
+    cum = (dt.double() * A.double()).reshape(B, S // Q, Q, H).cumsum(2)
+    return float(np.spacing(np.float32(cum.abs().max().item())))
+
+
+@pytest.mark.gpu
+def test_k3_matches_plain_version_on_card():
+    """f32, x, dt, A, B, C drawn as tests/test_kernels.py draws them: K3
+    within 2e-5 of the largest output of its plain version on the
+    reference's four shapes; K3 and its plain version each against the
+    float64 oracle within the larger of 2e-5 and float32's step at the
+    largest ``|cum|`` of the draw, relative to the largest output.  Both
+    round ``cum = cumsum(dt * A)`` to that step, and an error of one step
+    in ``cum`` moves ``exp(cum_t - cum_s)`` by that much relative:
+    softplus(normal) dt over the 1024-row chunk reaches ``|cum|`` ~ 1200,
+    a step of 1.2e-4.  bf16, dt and A from mamba2's init ranges:
+    elementwise within one bf16 step of the plain version, 1e-3 + 2^-7
+    |ref|, since both round an f32 sum to bf16."""
+    _cuda()
+    for i, shape in enumerate(K3_TEST_SHAPES + K3_MODEL_SHAPES):
+        chunk = shape[-1]
+        ins = _ssd(shape, i, torch.float32)
+        ref = ssd_scan_reference(*ins, chunk)
+        before = ssd_scan.launches
+        out = ssd_scan.run(*ins, chunk)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches == before + 1
+        if shape in K3_TEST_SHAPES:
+            err = float((out - ref).abs().max() / ref.abs().max())
+            assert err < 2e-5, (shape, err)
+        exact = ssd_oracle(*(t.double() for t in ins))
+        limit = max(2e-5, _cum_step(ins[1], ins[2], chunk))
+        for name, y in (("kernel", out), ("plain", ref)):
+            err = float((y.double() - exact).abs().max() / exact.abs().max())
+            assert err < limit, (shape, name, err, limit)
+        ins = _ssd(shape, i, torch.bfloat16, model_ranges=True)
+        ref = ssd_scan_reference(*ins, chunk).float()
+        out = ssd_scan.run(*ins, chunk).float()
+        assert bool(((out - ref).abs()
+                     <= 1e-3 + 2.0 ** -7 * ref.abs()).all()), shape
+
+
+@pytest.mark.gpu
+def test_k3_overflow_case_is_finite_and_its_gradient_too():
+    """dt 0.1 and A -16 over a chunk of 256: the upper triangle's decay
+    difference overflows float32's exp; the kernel never takes it."""
+    _cuda()
+    x, _, _, Bm, Cm = _ssd((1, 512, 4, 64, 1, 128, 256), 0, torch.float32)
+    dt = torch.full((1, 512, 4), 0.1, device="cuda")
+    A = torch.full((4,), -16.0, device="cuda")
+    ins = [t.requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    out = ssd_scan(*ins, 256)
+    ref = ssd_scan_reference(*ins, 256).detach()
+    assert torch.isfinite(out).all()
+    assert float((out.detach() - ref).abs().max() / ref.abs().max()) < 2e-5
+    grads = torch.autograd.grad(out.square().sum(), ins)
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.gpu
+def test_k3_reads_strided_inputs_and_rejects_what_it_does_not_take():
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((2, 128, 4, 32), generator=g, device="cuda")
+    bc = torch.randn((2, 128, 2, 2, 16), generator=g, device="cuda")
+    Bm, Cm = bc[:, :, 0], bc[:, :, 1]            # strided views
+    dt = torch.rand((2, 128, 4), generator=g, device="cuda")
+    A = -torch.rand(4, generator=g, device="cuda") - 0.5
+    out = ssd_scan.run(x, dt, A, Bm, Cm, 32)
+    ref = ssd_scan_reference(x, dt, A, Bm, Cm, 32)
+    assert float((out - ref).abs().max() / ref.abs().max()) < 2e-5
+    with pytest.raises(TypeError):
+        ssd_scan.run(x.half(), dt, A, Bm.half(), Cm.half(), 32)
+    with pytest.raises(TypeError):
+        ssd_scan.run(x, dt.double(), A, Bm, Cm, 32)
+    with pytest.raises(ValueError):
+        ssd_scan.run(x[..., :24], dt, A, Bm, Cm, 32)
+    pairs = torch.randn((2, 128, 2, 16, 2), generator=g, device="cuda")
+    with pytest.raises(ValueError):               # last dim not contiguous
+        ssd_scan.run(x, dt, A, pairs[..., 0], pairs[..., 1], 32)
