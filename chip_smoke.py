@@ -6,27 +6,32 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds kernels K1 (``src/repro_torch/csrc/pattern_summary.cu``), K2
-(``src/repro_torch/csrc/flash_attention.cu``) and K3
+(``src/repro_torch/csrc/flash_attention.cu``: the wgmma/TMA kernel for bf16
+at D 64-256 and the SIMT kernel for f32 and bf16 at D 16-32) and K3
 (``src/repro_torch/csrc/ssd_scan.cu``) with nvcc for sm_90a, all at once,
-and then runs these phases, each checked:
+prints their ptxas reports and how many HGMMA and UTMALDG instructions K2's
+SASS holds, and then runs these phases, each checked:
 
 1. K1 against its plain torch version on the card, timed;
 2. the port's fleet-mode diagnosis path through ``PerfTrackerService`` on the
    ring fault of ``examples/diagnose_ring_fault.py`` and on a 256-worker
    fleet at the paper's profiling window (20 s at 10 kHz);
-3. K2 against its plain torch version at gemma2-2b's attention shapes
-   (bf16, local and global layers, at the trainer's 2048 tokens and at 8192)
-   and at the f32 shapes of the reference's kernel tests; K2 timed beside
+3. K2 against its plain torch version, output and lse, at gemma2-2b's
+   attention shapes (bf16, local and global layers, at the trainer's 2048
+   tokens and at 8192, and a window of 512), bf16 at head dims 64 and 128,
+   windowed cases with an odd number of q heads per kv head at D 128 and
+   256, and at the f32 shapes of the reference's kernel tests; K2 timed beside
    its bound, its plain version, the library call that computes the same
    function (``flex_attention`` under ``torch.compile``, with a tanh
    ``score_mod`` and the causal/window block mask) and, for softcap 0,
    ``scaled_dot_product_attention``;
 4. the full gemma2-2b trainer (26 layers, full width, bf16 with fp32 AdamW
    state) for 5 steps of batch 1 x 2048 tokens through
-   ``Trainer.train_iteration``: 26 K2 launches a step, finite losses;
+   ``Trainer.train_iteration``: 26 K2 launches a step, all of the wgmma
+   variant, finite losses;
 5. a 4-worker ``TrainerWorkload`` at gemma2-2b's full width cut to 2 layers,
    one window under ``DataloaderBurn`` and one under ``StepThrottle``, each
-   diagnosed on the card;
+   diagnosed on the card (every K2 launch of the windows wgmma);
 6. K3 against its plain torch version (f32 on the shapes of the reference's
    kernel tests, bf16 at mamba2-2.7b's layer shape, and a chunk whose
    upper-triangle decay overflows float32), timed beside its bound and its
@@ -46,6 +51,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -79,6 +85,8 @@ BF16_RTOL = 2.0 ** -7
 K2_LIBRARY_TOL = 0.035   # the library yardstick vs the plain version: the
 #                          reference's own bf16 kernel-test limit
 K2_F32_TOL = 2e-5
+K2_LSE_TOL = 1e-3        # K2's lse vs its plain version, every case (the
+#                          card tests' limit): the backward reads it
 GEMMA_ATTN = dict(softcap=50.0, scale=256 ** -0.5)   # gemma2-2b's layers
 GEMMA_WINDOW = 4096
 TRAIN_SEQ = 2048     # the trainer's tokens per step (batch 1)
@@ -221,7 +229,7 @@ def same_diagnosis(a, b, fleet_size: int) -> None:
 def reset_counts(K, K2, K3) -> None:
     """Set every kernel's launch count to 0, just before a path runs."""
     K.pattern_summary.launches = 0
-    K2.flash_attention.launches = 0
+    K2.flash_attention.reset_counts()
     K3.ssd_scan.launches = 0
 
 
@@ -230,17 +238,34 @@ def _rand(g, shape, dtype):
 
 
 def k2_checks(K2) -> dict:
-    """K2 against its plain version: gemma2-2b's shapes in bf16 (local and
-    global, at the trainer's length and at 8192), the reference's
-    kernel-test shapes and variants in f32."""
+    """K2 against its plain version, output and lse: gemma2-2b's shapes in
+    bf16 (local and global, at the trainer's length and at 8192, and a
+    window of 512 that bites at 2048), bf16 at the repo's head dims 64
+    (internvl2-1b's heads) and 128 (starcoder2-3b's), windowed and capped
+    cases of an odd number of q heads per kv head (llama4-maverick's at D
+    128, and G 3 at D 256: one head a block), the reference's kernel-test
+    shapes and variants in f32.  Each case must run the variant
+    ``variant_for`` names."""
     g = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst_lse = 0.0
     bf16_ratio = 0.0      # worst |err| / (ATOL + RTOL * |ref|) in bf16
     cases = [(torch.bfloat16, (1, S, 8, 4, 256),
               dict(GEMMA_ATTN, window=w), name)
              for S in (TRAIN_SEQ, 8192)
              for w, name in ((GEMMA_WINDOW, "gemma2 local"),
                              (0, "gemma2 global"))]
+    cases += [(torch.bfloat16, (1, TRAIN_SEQ, 8, 4, 256),
+               dict(GEMMA_ATTN, window=512), "gemma2 window 512"),
+              (torch.bfloat16, (1, TRAIN_SEQ, 14, 2, 64), {},
+               "internvl2-1b heads D=64"),
+              (torch.bfloat16, (1, TRAIN_SEQ, 24, 2, 128), {},
+               "starcoder2-3b heads D=128"),
+              (torch.bfloat16, (1, TRAIN_SEQ, 40, 8, 128),
+               dict(window=512, softcap=30.0),
+               "llama4-maverick heads D=128 (G 5: one head a block)"),
+              (torch.bfloat16, (1, TRAIN_SEQ, 3, 1, 256),
+               dict(GEMMA_ATTN, window=512), "G 3 at D=256 (one head a block)")]
     cases += [(torch.float32, shape, {}, "kernel test")
               for shape in ((1, 128, 4, 4, 64), (2, 256, 6, 2, 64),
                             (1, 256, 8, 1, 128), (2, 128, 2, 2, 32))]
@@ -252,9 +277,13 @@ def k2_checks(K2) -> dict:
     for dtype, (B, S, H, KV, D), kw, name in cases:
         q = _rand(g, (B, S, H, D), dtype)
         k, v = _rand(g, (B, S, KV, D), dtype), _rand(g, (B, S, KV, D), dtype)
+        variant = K2.variant_for(dtype, D)
+        before = K2.flash_attention.launches_by_variant[variant]
         out, lse = K2.flash_attention(q, k, v, return_lse=True, **kw)
         ref, ref_lse = K2.flash_attention_reference(q, k, v, **kw)
         torch.cuda.synchronize()
+        if K2.flash_attention.launches_by_variant[variant] != before + 1:
+            raise AssertionError(f"K2 case {name} did not run {variant}")
         if not (torch.isfinite(out).all() and out.shape == ref.shape
                 and out.dtype == dtype):
             raise AssertionError(f"K2 output not finite or misshapen ({name})")
@@ -262,6 +291,7 @@ def k2_checks(K2) -> dict:
         err = float(diff.max())
         lse_err = float((lse - ref_lse).abs().max())
         worst[dtype] = max(worst[dtype], err)
+        worst_lse = max(worst_lse, lse_err)
         extra = ""
         if dtype == torch.bfloat16:
             ratio = float((diff / (BF16_ATOL + BF16_RTOL
@@ -269,17 +299,33 @@ def k2_checks(K2) -> dict:
             bf16_ratio = max(bf16_ratio, ratio)
             extra = (f", max |ref| {float(ref.float().abs().max()):.3g}, "
                      f"worst err / limit {ratio:.3g}")
-        print(f"[k2 check] {name} {dtype} B={B} S={S} H={H} KV={KV} D={D} "
-              f"{kw}: max |out err| {err:.3g}, max |lse err| "
+        print(f"[k2 check] {name} {dtype} ({variant}) B={B} S={S} H={H} "
+              f"KV={KV} D={D} {kw}: max |out err| {err:.3g}, max |lse err| "
               f"{lse_err:.3g}{extra}")
         del q, k, v, out, lse, ref, ref_lse, diff
     print(f"[k2 check] worst bf16 {worst[torch.bfloat16]:.4g} at "
           f"{bf16_ratio:.3g} of its limit ({BF16_ATOL} + {BF16_RTOL} "
           f"* |ref|), worst f32 {worst[torch.float32]:.3g} (tolerance "
-          f"{K2_F32_TOL})")
-    if bf16_ratio > 1.0 or worst[torch.float32] > K2_F32_TOL:
+          f"{K2_F32_TOL}), worst lse {worst_lse:.3g} (tolerance "
+          f"{K2_LSE_TOL})")
+    if bf16_ratio > 1.0 or worst[torch.float32] > K2_F32_TOL \
+            or not worst_lse <= K2_LSE_TOL:
         raise AssertionError("K2 disagrees with its plain version")
-    return {"bf16": worst[torch.bfloat16], "f32": worst[torch.float32]}
+    return {"bf16": worst[torch.bfloat16], "f32": worst[torch.float32],
+            "lse": worst_lse}
+
+
+def sass_counts(lib: Path) -> dict | None:
+    """How many tensor-core (HGMMA) and TMA-load (UTMALDG) instructions the
+    library's SASS holds, by cuobjdump; None where the toolkit lacks it."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "UTMALDG")}
 
 
 def _sdpa(q, k, v, window: int):
@@ -534,6 +580,7 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
         per_step.append(counter.launches - before)
         rows.append((float(m["loss"]), float(m["grad_norm"])))
     launches = counter.launches
+    by_variant = dict(getattr(counter, "launches_by_variant", {}))
     prof = tracer.stop_window()
     peak = torch.cuda.max_memory_allocated()
     top = sorted((e for e in prof.events if e.depth == 1),
@@ -561,8 +608,8 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
     del tr, params, opt_state, m
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(launches=launches, steps=steps, peak=peak,
-                state_bytes=state_bytes, profile=profile)
+    return dict(launches=launches, by_variant=by_variant, steps=steps,
+                peak=peak, state_bytes=state_bytes, profile=profile)
 
 
 #: kernel-name fragments of the matrix products (cuBLAS / CUTLASS kernels)
@@ -636,6 +683,7 @@ def trainer_fleet_phase(K, K2, K3, ARCHS, TrainerWorkload, DataloaderBurn,
         reset_counts(K, K2, K3)
         wd = wl.run_window(i, [fault], FLEET_ITERS, None)
         k2 = K2.flash_attention.launches
+        k2_wgmma = K2.flash_attention.launches_by_variant["wgmma"]
         samples = [len(p.streams["cpu"].values) for p in wd.profiles]
         for fname in ("dataloader.next", "train.step", "optimizer.step"):
             pats = [summarize_profile(p, backend="numpy")[0][fname]
@@ -654,12 +702,14 @@ def trainer_fleet_phase(K, K2, K3, ARCHS, TrainerWorkload, DataloaderBurn,
                  for d in res.diagnoses}
         plans = [(p.action.value, list(p.workers))
                  for p in plan_mitigations(res.diagnoses, 4)]
-        print(f"[trainer fleet] {name}{fault.workers}: K2 launches {k2}; cpu "
+        print(f"[trainer fleet] {name}{fault.workers}: K2 launches {k2} "
+              f"({k2_wgmma} wgmma); cpu "
               f"samples per worker {samples}; backend "
               f"{svc.summarize_backend.name}, K1 launches {k1}; flagged "
               f"{flagged} by rule {rules}; plans {plans}")
-        if k2 != cfg.num_layers * 4 * FLEET_ITERS:
-            raise AssertionError(f"K2 launches in the window {k2}")
+        if k2 != cfg.num_layers * 4 * FLEET_ITERS or k2_wgmma != k2:
+            raise AssertionError(f"K2 launches in the window {k2}, "
+                                 f"{k2_wgmma} of them wgmma")
         hit = [f for f in fns if flagged.get(f) == workers]
         planned = any(a == action and w in ([], workers) for a, w in plans)
         if not hit or not planned or k1 == 0:
@@ -724,11 +774,19 @@ def main() -> int:
     K.pattern_summary.library()
     K2.flash_attention.library()
     K3.ssd_scan.library()
-    smem = {dt: [K2.flash_attention.smem_bytes(dt, d) for d in K2.HEAD_DIMS]
-            for dt in (torch.bfloat16, torch.float32)}
-    print(f"[build] K2 dynamic shared memory per block, bytes: bf16 "
-          f"{smem[torch.bfloat16]}, f32 {smem[torch.float32]} for D in "
-          f"{K2.HEAD_DIMS}")
+    for dt in (torch.bfloat16, torch.float32):
+        print(f"[build] K2 {dt}: " + ", ".join(
+            f"D={d} {K2.variant_for(dt, d)} "
+            f"{K2.flash_attention.smem_bytes(dt, d)} bytes of shared memory"
+            for d in K2.HEAD_DIMS))
+    sass = sass_counts(libs[1])
+    if sass is None:
+        print("[build] K2 SASS: cuobjdump not found, not counted")
+    else:
+        print(f"[build] K2 SASS: {sass['HGMMA']} HGMMA (wgmma) and "
+              f"{sass['UTMALDG']} UTMALDG (TMA load) instructions")
+        if not (sass["HGMMA"] and sass["UTMALDG"]):
+            raise AssertionError("K2's library holds no wgmma or no TMA load")
     print(f"[build] K3 dynamic shared memory per block at mamba2-2.7b's "
           f"layer (N 128, Q 256, P slice {K3.p_split_for(64)}): "
           f"{K3.ssd_scan.smem_bytes(128, 256, 64)} bytes")
@@ -876,6 +934,11 @@ def main() -> int:
     tr = trainer_phase("[trainer]", ARCHS["gemma2-2b"], TRAIN_SEQ,
                        (K, K2, K3), "K2", K2.flash_attention, "flash_fwd",
                        Trainer, TrainConfig, DataConfig, OptConfig, Tracer)
+    print(f"[trainer] K2 launches by variant in the {TRAIN_STEPS} counted "
+          f"steps: {tr['by_variant']}")
+    if tr["by_variant"] != {"wgmma": tr["launches"], "simt": 0}:
+        raise AssertionError("the gemma2 trainer's K2 launches were not all "
+                             "wgmma")
     clock.lap("gemma2 trainer")
 
     # -- 7. the trainer fleet, diagnosed on the card --------------------------
@@ -930,11 +993,15 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:25",
+        "variant": "wgmma",
         "launches": tr["launches"],
+        "launches_by_variant": tr["by_variant"],
+        "sass": sass,
         "shape": f"bf16 q (1, {TRAIN_SEQ}, 8, 256) k/v (1, {TRAIN_SEQ}, 4, "
                  f"256), causal, softcap 50, global layer",
         "max_abs_err": k2_err["bf16"],
         "max_abs_err_f32": k2_err["f32"],
+        "max_abs_err_lse": k2_err["lse"],
         "ms": k2_main["ms"],
         "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"],

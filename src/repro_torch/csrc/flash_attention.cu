@@ -10,41 +10,83 @@
 // Tensors are read in the JAX layout (B, S, H, D) through their strides,
 // with D contiguous: nothing is transposed.
 //
-// Design.  One block of 256 threads per (q tile of 64 rows, head, batch);
-// a loop inside the block over kv tiles of 32 rows carries the running
-// (m, l, acc) of every row, where the TPU grid carried them in VMEM
-// scratch from one grid step to the next.  Thread (ty, tx) = (tid / 8,
-// tid % 8) owns rows ty and ty + 32: it computes their scores for kv
-// columns tx + 8c (c < 4), keeps their m and l in registers (row max and
-// row sum by shuffles across the 8 threads of a row), and accumulates
-// their outputs for head-dim columns tx + 8n (n < D/8) in registers, so
-// the BQ x D fp32 accumulator (64 KB at D = 256) never touches shared
-// memory.  Q (once), K and V (per tile) are staged in shared memory in
-// the input type; Q and K rows are padded by one 4-byte word so the score
-// loop is free of bank conflicts.  P goes through shared memory for the
-// P.V product.  kv tiles that the causal mask or the window masks
-// wholly are skipped (the Pallas grid visits them).  At D = 256 the block
-// takes 74 KB of dynamic shared memory in bf16 and 137 KB in fp32, above
-// the 48 KB default, hence cudaFuncSetAttribute.
+// Two kernels compute that function; the wrapper
+// (kernels/flash_attention.py::variant_for) picks one by a fixed rule before
+// any launch: bf16 with D in {64, 128, 256} runs `flash_fwd_wgmma`, float32
+// and bf16 with D in {16, 32} run `flash_fwd`.  A failed launch of either
+// raises; nothing retries on the other.
 //
-// Arithmetic: fp32 FMAs throughout (no tensor cores, no TF32, no fast
-// math: expf, logf, tanhf), so fp32 inputs meet the reference's 2e-5.
-// Fully masked rows keep l = 0 and are clamped to 1e-30 as `_kernel`
-// :70 does.
+// `flash_fwd_wgmma` (bf16, tensor cores).  One block of 3 warpgroups (384
+// threads) per 128 q rows: (64 rows, 2 heads of one kv head, batch) when
+// H/KV is even, so both heads share every K and V tile; else (128 rows,
+// head, batch).  q tiles are launched last tile first, so the causal
+// mask's longest blocks do not form the tail.
+// - Warpgroup 0 is the producer: it gives up registers (setmaxnreg.dec 24)
+//   and one of its threads issues TMA loads (cp.async.bulk.tensor, 4-D
+//   tensor maps over (D, heads, S, B) read through the tensors' strides)
+//   of the Q tile once and of the K and V tiles of 64 kv rows into a ring
+//   of 2 stages, with a full mbarrier per stage and operand and an empty
+//   mbarrier per stage.  Only the kv tiles that hold an unmasked pair for
+//   the block are loaded.  Rows past Sq or Skv arrive as zeros; masking
+//   comes from positions only.
+// - Warpgroups 1 and 2 are consumers of 64 q rows each (setmaxnreg.inc
+//   240).  S = Q K^T is wgmma m64n64k16, both operands from shared memory,
+//   K-major, D/16 k-steps.  The softmax runs on the accumulator in
+//   registers: scale and softcap (tanh from ex2, accurate to ~1e-7
+//   absolute; tanh.approx's 2^-11 relative error would move p by ~2% at
+//   scores near a cap of 50), the mask only on tiles that cross the
+//   diagonal, the window's edge or kv_len, row max and row sum over the
+//   accumulator's quad (2 shuffles, the sum only once at the end), exp2
+//   with log2(e) folded into the scale.  P is rounded to bf16 in registers
+//   and fed to wgmma as the A operand (the m64n64 accumulator fragment is
+//   the k16 A fragment); O += P V is D/64 m64n64k16 per 16 kv rows, V from
+//   shared memory MN-major (D contiguous, the transpose bit set).  The
+//   stage is released after the P V wgmma has been waited on.
+// - Shared memory holds the operands as TMA writes them with the 128-byte
+//   swizzle: 64-column atoms (a 128-byte row of 64 bf16), so a Q, K or V
+//   row of D = 256 is 4 atoms, each wgmma descriptor steps across them.
+//   At D = 256: Q 64 KB, K + V 2 stages x 64 KB: 192 KB (+1 KB to align).
+//   Registers per consumer thread at D = 256: O 128 fp32, S 32, P 16.
+// - Epilogue: O / max(l, 1e-30) to bf16 stored from registers, rows past
+//   Sq skipped; lse = m + log(max(l, 1e-30)), or -1e30 for a row the mask
+//   empties wholly, as the reference's kernel gives.
 //
-// Bound on an H100 SXM: operations.  4 * D FLOPs per unmasked (q, k)
-// pair and head (the causal and window pairs counted, not Sq * Skv) at
-// the dense bf16 tensor-core rate of 989 TFLOP/s, against bytes (q, k,
-// v, out read or written once) at 3.35 TB/s; at the gemma2-2b shapes the
-// FLOPs dominate by two orders of magnitude.  This first kernel runs on
-// the CUDA cores (67 TFLOP/s fp32 peak), and its score loop reads shared
-// memory once per 1.3 FMAs, so it stays far from that bound: wgmma/TMA
-// tiles are the next step.
+// `flash_fwd` (float32, and bf16 at D 16 and 32; the SIMT design).  One
+// block of 256 threads per (q tile of 64 rows, head, batch); a loop inside
+// the block over kv tiles of 32 rows carries the running (m, l, acc) of
+// every row, where the TPU grid carried them in VMEM scratch from one grid
+// step to the next.  Thread (ty, tx) = (tid / 8, tid % 8) owns rows ty and
+// ty + 32: it computes their scores for kv columns tx + 8c (c < 4), keeps
+// their m and l in registers (row max and row sum by shuffles across the
+// 8 threads of a row), and accumulates their outputs for head-dim columns
+// tx + 8n (n < D/8) in registers.  Q (once), K and V (per tile) are staged
+// in shared memory in the input type; Q and K rows are padded by one
+// 4-byte word so the score loop is free of bank conflicts.  P goes through
+// shared memory for the P.V product.  kv tiles that the causal mask or the
+// window masks wholly are skipped (the Pallas grid visits them).  fp32
+// FMAs throughout (no tensor cores, no TF32, no fast math: expf, logf,
+// tanhf), so fp32 inputs meet the reference's 2e-5; tensor cores would
+// take fp32 only as TF32 (about 3 digits).  At D = 256 the block takes
+// 137 KB of dynamic shared memory in fp32, hence cudaFuncSetAttribute.
+//
+// Bound on an H100 SXM: operations.  4 * D FLOPs per unmasked (q, k) pair
+// and head (the causal and window pairs counted, not Sq * Skv) at the
+// dense tensor-core rate of the input type (989 TFLOP/s bf16), against
+// bytes (q, k, v, out read or written once) at 3.35 TB/s; at the gemma2-2b
+// shapes the FLOPs dominate by two orders of magnitude.  What still holds
+// the wgmma kernel back from it: a consumer warpgroup does not overlap its
+// softmax with its own next Q K^T (only the two consumers overlap each
+// other), blocks are not persistent (each loads its Q and pays its
+// prologue and epilogue in turn, and the causal blocks are unequal), and
+// every wgmma is n64, so both consumers read each K tile from shared
+// memory separately.
 #include <stdint.h>
 
 #ifdef __CUDACC__
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdio.h>
 #endif
 
 namespace k2 {
@@ -236,6 +278,471 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
 
 }  // namespace k2
 
+// ---------------------------------------------------------------------------
+// flash_fwd_wgmma: bf16 on the tensor cores, fed by TMA (header above)
+
+namespace k2 {
+
+constexpr int kWRows = 128;       // q rows per block: 2 consumers x 64
+constexpr int kWCols = 64;        // kv rows per tile
+constexpr int kWStages = 2;       // depth of the K/V ring
+constexpr int kWThreads = 384;    // producer + 2 consumer warpgroups
+constexpr int kAtomCols = 64;     // bf16 columns of one 128-byte swizzle atom
+constexpr int kRowBytes = 128;    // bytes of one atom row
+constexpr int kConsumerWarps = 8;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+struct WParams {
+  void* o;
+  float* lse;
+  int Sq, H, KV;
+  long long o_sb, o_ss, o_sh;
+  int causal, window, q_offset, kv_len;
+  float softcap, scale;
+};
+
+// Byte offsets in the block's shared memory, from a 1024-byte-aligned base
+// (the 128-byte swizzle repeats every 8 rows = 1024 bytes, and wgmma's
+// descriptors assume atoms that start on that period).  An operand tile is
+// kAtoms atoms, one per 64 columns, each `rows` x 128 bytes.
+template <int D> struct WLayout {
+  static constexpr int kAtoms = D / kAtomCols;
+  static constexpr int kQAtom = kWRows * kRowBytes;
+  static constexpr int kKVAtom = kWCols * kRowBytes;
+  static constexpr int kQBytes = kAtoms * kQAtom;
+  static constexpr int kTileBytes = kAtoms * kKVAtom;   // one K or V tile
+  static constexpr int kQ0 = 0;
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kWStages * kTileBytes;
+  static constexpr int kBar = kV + kWStages * kTileBytes;
+  // q_full, k_full[kWStages], v_full[kWStages], empty[kWStages]
+  static constexpr int kNumBars = 1 + 3 * kWStages;
+  static constexpr int kBytes = kBar + 8 * kNumBars + 1024;   // + alignment
+};
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (in 16-byte units), layout 1
+// (128-byte swizzle), base offset 0.  K-major (Q, K): the stride byte
+// offset steps 8 rows (1024 bytes), the leading one is unused.  MN-major
+// (V): the stride byte offset steps 8 k-rows (1024 bytes); the leading one
+// would step to the next 64-column atom, which an n64 product never does.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+       | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16)
+       | ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32)
+       | (1ull << 62);
+}
+
+// kv tiles [jbeg, jend) holding an unmasked pair for q rows [q0, q0 + rows)
+__device__ __forceinline__ void tile_range(const WParams& p, int q0,
+                                           int rows, int& jbeg, int& jend) {
+  const int qmin = p.q_offset + q0;
+  const int qmax = p.q_offset + min(q0 + rows, p.Sq) - 1;
+  int kend = p.kv_len;
+  if (p.causal) kend = min(kend, qmax + 1);
+  const int kbeg = p.window > 0 ? max(0, qmin - p.window + 1) : 0;
+  jbeg = kbeg / kWCols;
+  jend = (max(kend, 0) + kWCols - 1) / kWCols;
+}
+
+#ifdef __CUDACC__
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// make the initialised barriers visible to the other threads and to TMA
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// wait for the phase of parity `parity` to complete (try_wait suspends the
+// thread for a while before it reports failure).  No timeout: a trap timer
+// here made ptxas spill registers of the D = 256 consumer and serialize its
+// wgmma.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// TMA: the box of `map` at coordinates (c0, c1, c2, c3) = (column, head,
+// row, batch) into shared memory at `dst`, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <int N> __device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(N));
+}
+
+template <int N> __device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across its issue and its wait
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (the m64n64 fp32 accumulator fragment) = A B^T (+ d if accumulate): A
+// 64 x 16 and B 64 x 16 bf16 from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B: A 64 x 16 bf16 from registers (`a`, the k16 A fragment), B
+// 16 x 64 bf16 from shared memory, MN-major (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#endif  // __CUDACC__
+
+// tanh(u) = 1 - 2 / (2^(2u log2 e) + 1): absolute error ~1e-7 over the
+// whole range (2^x overflows to inf for large u, giving exactly 1)
+__device__ __forceinline__ float tanh_acc(float u) {
+  return 1.0f - __fdividef(2.0f, ex2(u * (2.0f * kLog2e)) + 1.0f);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One consumer warpgroup (`c` = 0 or 1) of head h, q rows [q0, q0 + 64):
+// the kv tiles [jbeg, jend) from the ring, then O and lse of its rows.  In
+// the m64n64 fragment, thread t (warp w, lane l) holds rows 16w + l/4 (+8)
+// and, for register i, column 8 (i / 4) + 2 (l % 4) + (i % 2) of row half
+// (i / 2) % 2.
+template <int D>
+__device__ __forceinline__ void consume(const WParams& p,
+                                        unsigned char* smem, uint64_t* bars,
+                                        int c, int q0, int h, int b,
+                                        int jbeg, int jend) {
+  using L = WLayout<D>;
+  constexpr int NA = L::kAtoms;
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + kWStages;
+  uint64_t* empty = bars + 1 + 2 * kWStages;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int row = (t / 32) * 16 + lane / 4;   // and row + 8
+  const int qlo = p.q_offset + q0;             // position of row 0
+  const bool cap = p.softcap != 0.0f;
+  // scores in log2 units: s scale log2(e), or cap log2(e) tanh(s scale / cap)
+  const float kscale = cap ? p.scale / p.softcap : p.scale * kLog2e;
+  const float cap2 = p.softcap * kLog2e;
+  const uint32_t sq = smem_u32(smem + L::kQ0 + 64 * c * kRowBytes);
+
+  float o[NA][32];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[a][i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+
+  mbar_wait(q_full, 0);
+  for (int j = jbeg, it = 0; j < jend; ++j, ++it) {
+    const int s = it % kWStages;
+    const uint32_t ph = (it / kWStages) & 1;
+    const uint32_t sk = smem_u32(smem + L::kK + s * L::kTileBytes);
+    const uint32_t sv = smem_u32(smem + L::kV + s * L::kTileBytes);
+
+    // S = Q K^T: D/16 k-steps of 16 columns, 4 per 64-column atom
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    mbar_wait(k_full + s, ph);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_ss(sc, make_desc(sq + (kk / 4) * L::kQAtom + col, 16, 1024),
+               make_desc(sk + (kk / 4) * L::kKVAtom + col, 16, 1024), kk);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(sc);
+
+    // scale, softcap and (on edge tiles only) the mask
+    const int k0 = j * kWCols;
+    const bool edge = (p.causal && k0 + kWCols - 1 > qlo)
+                   || (p.window > 0 && qlo + 63 - k0 >= p.window)
+                   || k0 + kWCols > p.kv_len;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = cap ? cap2 * tanh_acc(sc[i] * kscale) : sc[i] * kscale;
+      if (edge) {
+        const int qpos = qlo + row + ((i >> 1) & 1) * 8;
+        const int kpos = k0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+        bool ok = kpos < p.kv_len;
+        if (p.causal) ok = ok && qpos >= kpos;
+        if (p.window > 0) ok = ok && qpos - kpos < p.window;
+        if (!ok) x = -INFINITY;
+      }
+      sc[i] = x;
+    }
+
+    // online softmax in log2 units; l stays a per-thread partial sum
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        mx = fmaxf(mx, fmaxf(sc[jj * 4 + 2 * r], sc[jj * 4 + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[r] = ex2(m[r] - mx);
+      m[r] = mx;
+      float sum = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pv = ex2(sc[jj * 4 + 2 * r + e] - mx);
+          sc[jj * 4 + 2 * r + e] = pv;
+          sum += pv;
+        }
+      l[r] = l[r] * alpha[r] + sum;
+    }
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[a][i] *= alpha[(i >> 1) & 1];
+
+    // P = hi + lo, two bf16 parts (P's error 2^-18 relative, not bf16's
+    // 2^-9: the reference keeps P in fp32).  Registers 8kk..8kk+7 (kv
+    // columns 16kk..16kk+15) are the A fragment of k-step kk.
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x0 = sc[8 * kk + 2 * e], x1 = sc[8 * kk + 2 * e + 1];
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
+        hi[kk][e] = *reinterpret_cast<const uint32_t*>(&h2);
+        lo[kk][e] = pack_bf16(x0 - __bfloat162float(h2.x),
+                              x1 - __bfloat162float(h2.y));
+      }
+
+    // O += P V: per 16 kv rows, two n64 products (hi, lo) per 64-column
+    // atom of V
+    mbar_wait(v_full + s, ph);
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(o[a]);
+    fence_regs(hi);
+    fence_regs(lo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        const uint64_t dv = make_desc(sv + a * L::kKVAtom
+                                      + kk * 16 * kRowBytes, 1024, 1024);
+        wgmma_rs(o[a], hi[kk], dv);
+        wgmma_rs(o[a], lo[kk], dv);
+      }
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(o[a]);
+    fence_regs(hi);
+    fence_regs(lo);
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int srow = q0 + row + 8 * r;
+    if (srow >= p.Sq) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+    const float inv = 1.0f / lc;
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb
+                      + srow * p.o_ss + h * p.o_sh + (lane & 3) * 2;
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(og + a * kAtomCols + jj * 8) =
+            __floats2bfloat162_rn(o[a][jj * 4 + 2 * r] * inv,
+                                  o[a][jj * 4 + 2 * r + 1] * inv);
+    if ((lane & 3) == 0)
+      p.lse[((long long)b * p.Sq + srow) * p.H + h] =
+          (m[r] <= kNegInf ? kNegInf : m[r] * kLn2) + logf(lc);
+  }
+}
+
+// kHeads q heads per block: 1 (the consumers take rows 0-63 and 64-127 of
+// one head) or 2 (two heads of one kv head, 64 rows each, sharing every K
+// and V tile).  Q's shared tile is 128 rows either way, consumer c's at row
+// 64c.
+template <int D, int kHeads>
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const WParams p) {
+  using L = WLayout<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  constexpr int kRows = kWRows / kHeads;                // q rows per head
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // last tile first
+  const int h = blockIdx.y * kHeads;                    // first head
+  const int b = blockIdx.z;
+  int jbeg, jend;
+  tile_range(p, q0, kRows, jbeg, jend);
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);                                // q_full
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(bars + 1 + s, 1);                      // k_full
+      mbar_init(bars + 1 + kWStages + s, 1);           // v_full
+      mbar_init(bars + 1 + 2 * kWStages + s, kConsumerWarps);   // empty
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every load
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      const int kvh = h / (p.H / p.KV);
+      mbar_expect_tx(bars, L::kQBytes);
+      for (int a = 0; a < L::kAtoms; ++a)
+        for (int hh = 0; hh < kHeads; ++hh)
+          tma_load(smem + L::kQ0 + a * L::kQAtom + hh * kRows * kRowBytes,
+                   &tm_q, bars, a * kAtomCols, h + hh, q0, b);
+      for (int j = jbeg, it = 0; j < jend; ++j, ++it) {
+        const int s = it % kWStages;
+        uint64_t* k_full = bars + 1 + s;
+        uint64_t* v_full = bars + 1 + kWStages + s;
+        mbar_wait(bars + 1 + 2 * kWStages + s, ((it / kWStages) & 1) ^ 1);
+        mbar_expect_tx(k_full, L::kTileBytes);
+        for (int a = 0; a < L::kAtoms; ++a)
+          tma_load(smem + L::kK + s * L::kTileBytes + a * L::kKVAtom, &tm_k,
+                   k_full, a * kAtomCols, kvh, j * kWCols, b);
+        mbar_expect_tx(v_full, L::kTileBytes);
+        for (int a = 0; a < L::kAtoms; ++a)
+          tma_load(smem + L::kV + s * L::kTileBytes + a * L::kKVAtom, &tm_v,
+                   v_full, a * kAtomCols, kvh, j * kWCols, b);
+      }
+    }
+  } else {
+    reg_alloc<240>();
+    const int c = threadIdx.x / 128 - 1;
+    consume<D>(p, smem, bars, c, kHeads == 1 ? q0 + 64 * c : q0,
+               kHeads == 1 ? h : h + c, b, jbeg, jend);
+  }
+}
+
+}  // namespace k2
+
 #ifdef __CUDACC__
 namespace k2 {
 
@@ -251,23 +758,117 @@ static cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the SIMT kernel's instantiations: float32 at every head dim, bf16 at the
+// head dims the wgmma kernel does not take
 template <typename T>
 static cudaError_t dispatch(const Params& p, int D, cudaStream_t stream) {
   switch (D) {
     case 16: return launch<T, 16>(p, stream);
     case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    case 256: return launch<T, 256>(p, stream);
-    default: return cudaErrorInvalidValue;
   }
+  if constexpr (sizeof(T) == 4) {
+    switch (D) {
+      case 64: return launch<T, 64>(p, stream);
+      case 128: return launch<T, 128>(p, stream);
+      case 256: return launch<T, 256>(p, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+static long long simt_smem(int D) {
+  switch (D) {
+    case 16: return smem_bytes<T, 16>();
+    case 32: return smem_bytes<T, 32>();
+  }
+  if constexpr (sizeof(T) == 4) {
+    switch (D) {
+      case 64: return smem_bytes<T, 64>();
+      case 128: return smem_bytes<T, 128>();
+      case 256: return smem_bytes<T, 256>();
+    }
+  }
+  return 0;
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query, so the library needs no -lcuda
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+constexpr int kNoEncoder = -100000;   // error code: no cuTensorMapEncodeTiled
+
+// 4-D tensor map of a (B, S, heads, D) bf16 operand, dims innermost first
+// (D, heads, S, B), strides in elements; a box is 64 columns of `rows`
+// rows of one head, written to shared memory with the 128-byte swizzle.
+// Rows outside [0, S) read as zeros.  Returns 0, or minus the CUresult.
+static int make_map(CUtensorMap* map, const void* base, int D, int heads,
+                    int S, int B, long long sh, long long ss, long long sb,
+                    int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kAtomCols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
+template <int D, int kHeads>
+static cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                                const CUtensorMap& tv, const WParams& p,
+                                int B, cudaStream_t stream) {
+  constexpr int smem = WLayout<D>::kBytes;
+  constexpr int rows = kWRows / kHeads;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma<D, kHeads>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + rows - 1) / rows, p.H / kHeads, B);
+  flash_fwd_wgmma<D, kHeads><<<grid, kWThreads, smem, stream>>>(tq, tk, tv,
+                                                                 p);
+  return cudaGetLastError();
+}
+
+template <int D>
+static cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                                const CUtensorMap& tv, const WParams& p,
+                                int B, int heads_per_block,
+                                cudaStream_t stream) {
+  return heads_per_block == 2 ? launch_wgmma<D, 2>(tq, tk, tv, p, B, stream)
+                              : launch_wgmma<D, 1>(tq, tk, tv, p, B, stream);
 }
 
 }  // namespace k2
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
-// dimension of every tensor has stride 1.  Returns cudaGetLastError() of
-// the launch (0 on success).
+// The SIMT kernel `flash_fwd`.  dtype: 0 = float32, 1 = bfloat16 (D 16 and
+// 32 only).  Strides are in elements; the last dimension of every tensor
+// has stride 1.  Returns cudaGetLastError() of the launch (0 on success).
 extern "C" int k2_flash_attention(
     const void* q, const void* k, const void* v, void* o, float* lse,
     int B, int Sq, int Skv, int H, int KV, int D,
@@ -295,29 +896,70 @@ extern "C" int k2_flash_attention(
   return (int)err;
 }
 
-// dynamic shared memory of one block, in bytes (0 for an unsupported case)
+// The wgmma kernel `flash_fwd_wgmma`: bf16 q/k/v with D in {64, 128, 256}.
+// q/k/v strides (elements) are those the TMA descriptors read by: 16-byte
+// multiples, with a 16-byte-aligned base (the wrapper checks both).
+// Returns 0, a cudaError_t of the launch, or minus the CUresult of a
+// failed tensor-map encoding.
+extern "C" int k2_flash_attention_wgmma(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int B, int Sq, int Skv, int H, int KV, int D,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh,
+    int causal, int window, float softcap, float scale, int q_offset,
+    int kv_len, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || KV <= 0 || H % KV != 0
+      || (D != 64 && D != 128 && D != 256))
+    return (int)cudaErrorInvalidValue;
+  // two q heads per block when they share a kv head (H / KV even), so
+  // each K and V tile serves both; else 128 rows of one head
+  const int heads_per_block = (H / KV) % 2 == 0 ? 2 : 1;
+  CUtensorMap tq, tk, tv;
+  int r = k2::make_map(&tq, q, D, H, Sq, B, q_sh, q_ss, q_sb,
+                       k2::kWRows / heads_per_block);
+  if (r == 0)
+    r = k2::make_map(&tk, k, D, KV, Skv, B, k_sh, k_ss, k_sb, k2::kWCols);
+  if (r == 0)
+    r = k2::make_map(&tv, v, D, KV, Skv, B, v_sh, v_ss, v_sb, k2::kWCols);
+  if (r != 0) return r;
+  k2::WParams p;
+  p.o = o; p.lse = lse; p.Sq = Sq; p.H = H; p.KV = KV;
+  p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
+  p.causal = causal; p.window = window; p.q_offset = q_offset;
+  p.kv_len = kv_len; p.softcap = softcap; p.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int hpb = heads_per_block;
+  cudaError_t err =
+      D == 64 ? k2::launch_wgmma<64>(tq, tk, tv, p, B, hpb, st)
+      : D == 128 ? k2::launch_wgmma<128>(tq, tk, tv, p, B, hpb, st)
+                 : k2::launch_wgmma<256>(tq, tk, tv, p, B, hpb, st);
+  return (int)err;
+}
+
+// dynamic shared memory of one block of the kernel that runs (dtype, D),
+// in bytes (0 for an unsupported case)
 extern "C" long long k2_smem_bytes(int dtype, int D) {
-  if (dtype == 0) {
-    switch (D) {
-      case 16: return k2::smem_bytes<float, 16>();
-      case 32: return k2::smem_bytes<float, 32>();
-      case 64: return k2::smem_bytes<float, 64>();
-      case 128: return k2::smem_bytes<float, 128>();
-      case 256: return k2::smem_bytes<float, 256>();
-    }
-  } else if (dtype == 1) {
-    switch (D) {
-      case 16: return k2::smem_bytes<__nv_bfloat16, 16>();
-      case 32: return k2::smem_bytes<__nv_bfloat16, 32>();
-      case 64: return k2::smem_bytes<__nv_bfloat16, 64>();
-      case 128: return k2::smem_bytes<__nv_bfloat16, 128>();
-      case 256: return k2::smem_bytes<__nv_bfloat16, 256>();
-    }
+  if (dtype == 0) return k2::simt_smem<float>(D);
+  if (dtype != 1) return 0;
+  switch (D) {
+    case 64: return k2::WLayout<64>::kBytes;
+    case 128: return k2::WLayout<128>::kBytes;
+    case 256: return k2::WLayout<256>::kBytes;
   }
-  return 0;
+  return k2::simt_smem<__nv_bfloat16>(D);
 }
 
 extern "C" const char* k2_error_string(int code) {
+  static char buf[96];
+  if (code == k2::kNoEncoder)
+    return "cuTensorMapEncodeTiled not available";
+  if (code < 0) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed: CUresult %d",
+             -code);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 #endif  // __CUDACC__

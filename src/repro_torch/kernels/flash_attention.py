@@ -6,12 +6,31 @@ head ``h // (H/KV)``), causal masking, a sliding window
 (``qpos - kpos < window``), a tanh logit softcap and a scale (``1/sqrt(D)``
 when 0).  It returns the output in q's dtype and, with ``return_lse``, the
 fp32 log-sum-exp ``(B, Sq, H)`` of every row, which the attention backward
-needs.  On a CUDA tensor it launches the hand-written kernel in
+needs.  On a CUDA tensor it launches a hand-written kernel in
 ``csrc/flash_attention.cu`` or raises; on a CPU tensor it runs
 ``flash_attention_reference``, the plain torch version of the same function.
 
-The kernel replaces the JAX reference's Pallas TPU kernel
-``repro/kernels/flash_attention.py::_kernel``.  Its bound on an H100 is
+Which kernel runs is one fixed rule, ``variant_for(dtype, D)``, decided
+before any launch:
+
+* bfloat16 with D in (64, 128, 256), every head dim of the repo's attention
+  models, runs ``"wgmma"``: tensor-core tiles (``wgmma``) fed by TMA loads,
+  a producer warpgroup and two consumer warpgroups of 64 q rows per block
+  (two q heads of one kv head per block when H/KV is even, so they share
+  every K and V tile; else 128 rows of one head).  Its operands must suit
+  TMA: a 16-byte-aligned base and 16-byte-multiple strides
+  (``tma_strides`` checks them and raises ``ValueError``).
+* float32 at any D, and bfloat16 with D in (16, 32), run ``"simt"``: fp32
+  FMAs on the CUDA cores.  float32 must meet the reference's 2e-5, which the
+  tensor cores (TF32 for fp32 inputs, about 3 digits) cannot; D 16 and 32
+  occur only in the reduced test configurations.
+
+A failed launch of either variant raises; nothing retries on the other or
+on the plain version.  ``launches`` counts every launch and
+``launches_by_variant`` each variant's.
+
+The kernels replace the JAX reference's Pallas TPU kernel
+``repro/kernels/flash_attention.py::_kernel``.  The bound on an H100 is
 operations (``bound_ms``): 4 * D FLOPs per unmasked (q, k) pair and head at
 the dense tensor-core rate of the input type, against the bytes of q, k, v,
 the output and lse at 3.35 TB/s.  The library call that computes the same
@@ -36,8 +55,11 @@ from repro_torch.kernels import _build
 SOURCE = _build.CSRC / "flash_attention.cu"
 NEG_INF = -1.0e30
 
-#: head dims the kernel is instantiated for (``dispatch`` in the source)
+#: head dims the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: bf16 head dims of the wgmma variant (``flash_fwd_wgmma`` in the source)
+WGMMA_HEAD_DIMS = (64, 128, 256)
+VARIANTS = ("wgmma", "simt")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, fp32 on
@@ -75,6 +97,45 @@ def bound_ms(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def variant_for(dtype: torch.dtype, D: int) -> str:
+    """The kernel that runs q/k/v of ``dtype`` with head dim ``D``:
+    ``"wgmma"`` for bfloat16 at D in ``WGMMA_HEAD_DIMS``, else ``"simt"``
+    (module docstring).  Raises on a type or head dim K2 does not take."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"K2 takes float32 or bfloat16, got {dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"K2 takes head dims {HEAD_DIMS}, got {D}")
+    return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS \
+        else "simt"
+
+
+def tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """The (batch, seq, head) strides, in elements, by which the wgmma
+    variant's TMA descriptors read a ``(B, S, heads, D)`` operand: its own,
+    except that a dimension of size 1 gets the stride of a dense layout
+    (its stride is never used, and TMA takes none that is not a multiple of
+    16 bytes).  Raises ``ValueError`` unless the head dim is contiguous,
+    the base is 16-byte aligned and every other stride is a positive
+    multiple of 16 bytes below 2^40."""
+    if t.dim() != 4 or t.stride(3) != 1:
+        raise ValueError("TMA reads (B, S, heads, D) with D contiguous")
+    size = t.element_size()
+    if t.data_ptr() % 16:
+        raise ValueError(f"TMA needs a 16-byte-aligned base, got address "
+                         f"{t.data_ptr():#x}")
+    strides = [0, 0, 0]
+    inner, extent = 1, t.shape[3]
+    for dim in (2, 1, 0):
+        st = t.stride(dim) if t.shape[dim] > 1 else inner * extent
+        if st <= 0 or (st * size) % 16 or st * size >= 1 << 40:
+            raise ValueError(f"TMA needs strides that are positive "
+                             f"multiples of 16 bytes, got stride {st} "
+                             f"elements of {size} bytes in dim {dim}")
+        strides[dim] = st
+        inner, extent = st, t.shape[dim]
+    return strides[0], strides[1], strides[2]
 
 
 def build() -> Path:
@@ -127,12 +188,17 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
 
 
 class FlashAttention:
-    """The K2 wrapper.  ``launches`` counts kernel launches (a plain
-    integer, never incremented on the CPU path)."""
+    """The K2 wrapper.  ``launches`` counts kernel launches and
+    ``launches_by_variant`` those of each variant (plain integers, never
+    incremented on the CPU path)."""
 
     def __init__(self):
-        self.launches = 0
+        self.reset_counts()
         self._lib: Optional[ctypes.CDLL] = None
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
     def library(self) -> ctypes.CDLL:
         """Build (at first use) and load the kernel's shared library."""
@@ -143,6 +209,10 @@ class FlashAttention:
                 [p] * 5 + [i] * 6 + [ll] * 12
                 + [i, i, ctypes.c_float, ctypes.c_float, i, i, i, p])
             lib.k2_flash_attention.restype = ctypes.c_int
+            lib.k2_flash_attention_wgmma.argtypes = (
+                [p] * 5 + [i] * 6 + [ll] * 12
+                + [i, i, ctypes.c_float, ctypes.c_float, i, i, p])
+            lib.k2_flash_attention_wgmma.restype = ctypes.c_int
             lib.k2_smem_bytes.argtypes = [i, i]
             lib.k2_smem_bytes.restype = ll
             lib.k2_error_string.argtypes = [i]
@@ -151,7 +221,8 @@ class FlashAttention:
         return self._lib
 
     def smem_bytes(self, dtype: torch.dtype, D: int) -> int:
-        """Dynamic shared memory of one block, in bytes."""
+        """Dynamic shared memory of one block of the kernel that runs
+        (dtype, D), in bytes."""
         return int(self.library().k2_smem_bytes(DTYPE_CODES[dtype], D))
 
     def __call__(self, q, k, v, *, causal: bool = True, window: int = 0,
@@ -176,32 +247,38 @@ class FlashAttention:
                 or v.device != q.device:
             raise ValueError(f"K2 runs on one CUDA device, got {q.device}, "
                              f"{k.device}, {v.device}")
-        if q.dtype not in DTYPE_CODES or k.dtype != q.dtype \
-                or v.dtype != q.dtype:
-            raise TypeError(f"K2 takes float32 or bfloat16 q/k/v of one "
-                            f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
-        if D not in HEAD_DIMS:
-            raise ValueError(f"K2 takes head dims {HEAD_DIMS}, got {D}")
+        if k.dtype != q.dtype or v.dtype != q.dtype:
+            raise TypeError(f"K2 takes q/k/v of one type, got {q.dtype}, "
+                            f"{k.dtype}, {v.dtype}")
+        variant = variant_for(q.dtype, D)
         if any(t.stride(-1) != 1 for t in (q, k, v)):
             raise ValueError("K2 takes tensors whose head dim is contiguous")
+        if variant == "wgmma":
+            strides = [s for t in (q, k, v) for s in tma_strides(t)]
+        else:
+            strides = [s for t in (q, k, v) for s in t.stride()[:3]]
         out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
         lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
         kv_len = Skv if kv_len is None else min(int(kv_len), Skv)
-        with torch.cuda.device(q.device):
-            code = self.library().k2_flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), B, Sq, Skv, H, KV, D,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        lib = self.library()
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), B, Sq, Skv, H, KV, D, *strides,
                 *out.stride()[:3], int(causal), int(window), float(softcap),
-                float(scale or 1.0 / math.sqrt(D)), int(q_offset), kv_len,
-                DTYPE_CODES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
+                float(scale or 1.0 / math.sqrt(D)), int(q_offset), kv_len]
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            if variant == "wgmma":
+                code = lib.k2_flash_attention_wgmma(*args, stream)
+            else:
+                code = lib.k2_flash_attention(*args, DTYPE_CODES[q.dtype],
+                                              stream)
         if code != 0:
-            msg = self.library().k2_error_string(code).decode()
-            raise RuntimeError(f"K2 launch on q {tuple(q.shape)} k "
-                               f"{tuple(k.shape)} {q.dtype} failed: CUDA "
-                               f"error {code} ({msg})")
+            msg = lib.k2_error_string(code).decode()
+            raise RuntimeError(f"K2 ({variant}) launch on q {tuple(q.shape)} "
+                               f"k {tuple(k.shape)} {q.dtype} failed: error "
+                               f"{code} ({msg})")
         self.launches += 1
+        self.launches_by_variant[variant] += 1
         return (out, lse) if return_lse else out
 
 

@@ -22,9 +22,12 @@ import torch
 from repro.kernels import ops
 from repro.models import attention_core as RC
 
+from repro_torch.configs.registry import ARCHS
 from repro_torch.kernels.flash_attention import (bound_ms, flash_attention,
                                                  flash_attention_reference,
-                                                 unmasked_pairs)
+                                                 tma_strides, unmasked_pairs,
+                                                 variant_for)
+from repro_torch.models import attention as A
 from repro_torch.models import attention_core as C
 
 # autouse fixture: torch on one CPU thread
@@ -78,9 +81,11 @@ def test_plain_version_variants_match_pallas_kernel(kw):
 def test_wrapper_on_cpu_runs_plain_version_without_launch():
     q, k, v = (_t(a) for a in _qkv(2, 1, 64, 4, 2, 16))
     before = flash_attention.launches
+    by_variant = dict(flash_attention.launches_by_variant)
     out, lse = flash_attention(q, k, v, window=8, softcap=5.0,
                                return_lse=True)
     assert flash_attention.launches == before
+    assert flash_attention.launches_by_variant == by_variant
     ref_out, ref_lse = flash_attention_reference(q, k, v, window=8,
                                                  softcap=5.0)
     assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
@@ -89,6 +94,31 @@ def test_wrapper_on_cpu_runs_plain_version_without_launch():
         flash_attention(q, k[:, :, :1].expand(1, 64, 3, 16), v)
     with pytest.raises(ValueError):
         flash_attention(q[0], k, v)
+
+
+#: the attention models of the repo, with their head dims 64, 128 and 256
+ATTENTION_ARCHS = ["gemma2-2b", "granite-34b", "phi3-medium-14b",
+                   "starcoder2-3b", "llama4-maverick-400b-a17b",
+                   "internvl2-1b", "musicgen-medium"]
+
+
+@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+def test_model_qkv_in_bf16_takes_the_wgmma_variant(arch):
+    """The q/k/v that the port's attention block hands K2 (projections and
+    RoPE at the model's heads and head dim, bf16) go to the wgmma kernel,
+    and their layouts pass its TMA check."""
+    cfg = ARCHS[arch]
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator().manual_seed(0)
+    width = 32                     # the model's width does not enter
+    p = {name: torch.randn((width, n, D), generator=g).bfloat16()
+         for name, n in (("wq", H), ("wk", KV), ("wv", KV))}
+    x = torch.randn((2, 8, width), generator=g).bfloat16()
+    q, k, v = A._qkv(p, x, cfg, torch.arange(8))
+    assert {t.dtype for t in (q, k, v)} == {torch.bfloat16}
+    assert variant_for(q.dtype, D) == "wgmma"
+    for t, heads in ((q, H), (k, KV), (v, KV)):
+        assert tma_strides(t)[1:] == (heads * D, D)
 
 
 def test_plain_version_lse_is_the_log_partition():

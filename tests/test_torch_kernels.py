@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_reference)
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, VARIANTS,
+                                                 flash_attention,
+                                                 flash_attention_reference,
+                                                 tma_strides, variant_for)
 from repro_torch.kernels.pattern_summary import (bound_ms, pattern_summary,
                                                  pattern_summary_reference,
                                                  threads_for)
@@ -63,6 +65,51 @@ def test_launch_geometry_and_bound():
         (84384 * 1101 * 4 + 84384 * 24) / 3.35e12 * 1e3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_k2_variant_rule(dtype, D):
+    """bf16 at D 64/128/256 runs the wgmma kernel; f32, and bf16 at D 16
+    and 32, the SIMT kernel."""
+    want = "wgmma" if dtype == torch.bfloat16 and D >= 64 else "simt"
+    assert variant_for(dtype, D) == want and want in VARIANTS
+
+
+def test_k2_variant_rule_rejects_what_k2_does_not_take():
+    for D in (0, 8, 48, 96, 112, 192, 512):
+        with pytest.raises(ValueError):
+            variant_for(torch.bfloat16, D)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            variant_for(dtype, 64)
+
+
+def test_tma_strides_of_dense_fused_and_degenerate_layouts():
+    dense = torch.zeros((2, 64, 8, 64), dtype=torch.bfloat16)
+    assert tma_strides(dense) == (64 * 8 * 64, 8 * 64, 64)
+    fused = torch.zeros((2, 64, 4 + 2 + 2, 64), dtype=torch.bfloat16)
+    assert tma_strides(fused[:, :, 4:6]) == (64 * 8 * 64, 8 * 64, 64)
+    # size-1 dims take a dense stride, whatever torch reports for them
+    one = torch.zeros((1, 10, 1, 128), dtype=torch.bfloat16)
+    assert tma_strides(one.as_strided(one.shape, (3, 128, 5, 1))) == \
+        (10 * 128, 128, 128)
+
+
+@pytest.mark.parametrize("offset,strides", [
+    (1, (64 * 8 * 64, 8 * 64, 64, 1)),        # base 2 bytes off 16
+    (4, (64 * 8 * 64, 8 * 64, 64, 1)),        # base 8 bytes off 16
+    (0, (64 * 8 * 64, 8 * 64 + 1, 64, 1)),    # seq stride 1026 bytes
+    (0, (64 * 8 * 64, 8 * 64, 60, 1)),        # head stride 120 bytes
+    (0, (64 * 8 * 64 + 4, 8 * 64, 64, 1)),    # batch stride off 16
+    (0, (64 * 8 * 64, 0, 64, 1)),             # broadcast seq: stride 0
+    (0, (64 * 8 * 64, 8 * 64, 64, 2)),        # head dim not contiguous
+])
+def test_tma_strides_rejects_misaligned_operands(offset, strides):
+    base = torch.zeros(2 * 64 * 8 * 64 * 2 + 64, dtype=torch.bfloat16)
+    t = base.as_strided((2, 64, 8, 64), strides, offset)
+    with pytest.raises(ValueError):
+        tma_strides(t)
+
+
 # -- on the card ----------------------------------------------------------------
 
 def _cuda():
@@ -112,27 +159,56 @@ K2_CASES = [
     (1, 1000, 1000, 8, 4, 256, dict(window=300, softcap=50.0,
                                     scale=0.0625)),
     (1, 16, 200, 4, 1, 64, dict(q_offset=150, kv_len=166)),
+    # an odd number of q heads per kv head (one head a block at D >= 64),
+    # windowed and capped: the block's second 64 rows see kv tiles that
+    # the window empties for them
+    (2, 300, 300, 3, 1, 64, dict(window=90, softcap=20.0)),
+    (1, 300, 300, 5, 1, 128, dict(window=100, softcap=30.0)),
+    (1, 300, 300, 3, 1, 256, dict(window=64, softcap=50.0)),
 ]
+
+
+def _k2_inputs(i, shape_q, shape_kv, dtype):
+    g = torch.Generator(device="cuda").manual_seed(i)
+    return (torch.randn(shape_q, generator=g, device="cuda").to(dtype),
+            torch.randn(shape_kv, generator=g, device="cuda").to(dtype),
+            torch.randn(shape_kv, generator=g, device="cuda").to(dtype))
+
+
+def _bf16_within_limits(out, ref, lse, ref_lse):
+    """The bf16 limits: 0.035 at most, elementwise 1e-3 + 2^-7 |ref| (one
+    bf16 step), lse within 1e-3."""
+    diff = (out.float() - ref.float()).abs()
+    return (float(diff.max()) < 0.035
+            and bool((diff <= 1e-3 + 2.0 ** -7 * ref.float().abs()).all())
+            and float((lse - ref_lse).abs().max()) < 1e-3)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 0.035)])
 def test_k2_matches_plain_version_on_card(dtype, tol):
+    """Every case on the variant ``variant_for`` names: in bf16 at D >= 64
+    the wgmma kernel (the ragged 1000-token layer with window 300 and
+    softcap 50, the q_offset/kv_len case, GQA, MQA, odd G with a window),
+    held elementwise to one bf16 step as well."""
     _cuda()
     for i, (B, Sq, Skv, H, KV, D, kw) in enumerate(K2_CASES):
-        g = torch.Generator(device="cuda").manual_seed(i)
-        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
-                   for shape in ((B, Sq, H, D), (B, Skv, KV, D),
-                                 (B, Skv, KV, D)))
+        q, k, v = _k2_inputs(i, (B, Sq, H, D), (B, Skv, KV, D), dtype)
         ref, ref_lse = flash_attention_reference(q, k, v, **kw)
-        before = flash_attention.launches
+        variant = variant_for(dtype, D)
+        total = flash_attention.launches
+        before = dict(flash_attention.launches_by_variant)
         out, lse = flash_attention(q, k, v, return_lse=True, **kw)
         torch.cuda.synchronize()
-        assert flash_attention.launches == before + 1
+        assert flash_attention.launches == total + 1
+        assert flash_attention.launches_by_variant == dict(
+            before, **{variant: before[variant] + 1}), i
         assert out.dtype == dtype and out.shape == ref.shape
         assert float((out.float() - ref.float()).abs().max()) < tol, i
         assert float((lse - ref_lse).abs().max()) < 1e-3, i
+        if dtype == torch.bfloat16:
+            assert _bf16_within_limits(out, ref, lse, ref_lse), i
 
 
 @pytest.mark.gpu
@@ -151,6 +227,59 @@ def test_k2_reads_strided_inputs_and_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         flash_attention(q.transpose(1, 3), k.transpose(1, 3),
                         v.transpose(1, 3))
+
+
+@pytest.mark.gpu
+def test_k2_wgmma_reads_q_k_v_sliced_from_one_fused_tensor():
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    qkv = torch.randn((2, 300, 4 + 2 + 2, 64), generator=g,
+                      device="cuda").bfloat16()
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    kw = dict(window=100, softcap=30.0)
+    before = flash_attention.launches_by_variant["wgmma"]
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    ref, ref_lse = flash_attention_reference(q, k, v, **kw)
+    assert flash_attention.launches_by_variant["wgmma"] == before + 1
+    assert _bf16_within_limits(out, ref, lse, ref_lse)
+    shifted = torch.zeros(qkv.numel() + 1, dtype=torch.bfloat16,
+                          device="cuda")[1:].view(qkv.shape)
+    with pytest.raises(ValueError):            # base 2 bytes off 16
+        flash_attention(shifted[:, :, :4], shifted[:, :, 4:6],
+                        shifted[:, :, 6:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_rows_the_mask_empties_give_zeros(dtype):
+    """kv_len 0 empties every row: zeros and lse -1e30, on either
+    variant."""
+    _cuda()
+    q, k, v = _k2_inputs(0, (1, 130, 4, 64), (1, 130, 2, 64), dtype)
+    out, lse = flash_attention(q, k, v, return_lse=True, kv_len=0)
+    torch.cuda.synchronize()
+    assert float(out.float().abs().max()) == 0.0
+    assert float(lse.max()) <= -1e29
+
+
+@pytest.mark.gpu
+def test_k2_counts_launches_by_variant():
+    _cuda()
+    cases = [(torch.float32, 256, "simt"), (torch.bfloat16, 32, "simt"),
+             (torch.bfloat16, 16, "simt"), (torch.bfloat16, 64, "wgmma"),
+             (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma")]
+    for dtype, D, variant in cases:
+        q, k, v = _k2_inputs(D, (1, 96, 2, D), (1, 96, 1, D), dtype)
+        total = flash_attention.launches
+        before = dict(flash_attention.launches_by_variant)
+        out = flash_attention(q, k, v, softcap=20.0)
+        ref, _ = flash_attention_reference(q, k, v, softcap=20.0)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == total + 1
+        assert flash_attention.launches_by_variant == dict(
+            before, **{variant: before[variant] + 1})
+        tol = 2e-5 if dtype == torch.float32 else 0.035
+        assert float((out.float() - ref.float()).abs().max()) < tol
 
 
 #: (B, S, H, P, G, N, chunk): the SSD shapes of tests/test_kernels.py
