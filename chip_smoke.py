@@ -8,9 +8,11 @@ Run from the repository root on a machine with one CUDA card:
 It builds kernels K1 (``src/repro_torch/csrc/pattern_summary.cu``), K2
 (``src/repro_torch/csrc/flash_attention.cu``: the wgmma/TMA kernel for bf16
 at D 64-256 and the SIMT kernel for f32 and bf16 at D 16-32) and K3
-(``src/repro_torch/csrc/ssd_scan.cu``) with nvcc for sm_90a, all at once,
-prints their ptxas reports and how many HGMMA and UTMALDG instructions K2's
-SASS holds, and then runs these phases, each checked:
+(``src/repro_torch/csrc/ssd_scan.cu``: four wgmma/TMA passes for bf16 at
+P 64/128, N and chunk multiples of 64 up to 256, and the SIMT kernel for the
+rest) with nvcc for sm_90a, all at once, prints their ptxas reports and how
+many HGMMA and UTMALDG instructions K2's and K3's SASS hold, and then runs
+these phases, each checked:
 
 1. K1 against its plain torch version on the card, timed;
 2. the port's fleet-mode diagnosis path through ``PerfTrackerService`` on the
@@ -33,12 +35,15 @@ SASS holds, and then runs these phases, each checked:
    one window under ``DataloaderBurn`` and one under ``StepThrottle``, each
    diagnosed on the card (every K2 launch of the windows wgmma);
 6. K3 against its plain torch version (f32 on the shapes of the reference's
-   kernel tests, bf16 at mamba2-2.7b's layer shape, and a chunk whose
-   upper-triangle decay overflows float32), timed beside its bound and its
-   plain version, with the plain SSD backward of one layer;
+   kernel tests through the SIMT kernel; bf16 through the wgmma variant at
+   mamba2-2.7b's layer shape, at a chunk whose upper-triangle decay
+   overflows float32, and at zamba2-7b's SSM layer), timed beside its bound
+   and its plain version, each wgmma pass's device time from one profiled
+   call, with the plain SSD backward of one layer;
 7. the full mamba2-2.7b trainer (64 layers, full width, bf16 with f32
    ``A_log``/``D``/``dt_bias`` and fp32 AdamW state) for 5 steps of batch
-   1 x 2048 tokens: 64 K3 launches a step, finite losses and grad norms.
+   1 x 2048 tokens: 64 K3 launches a step, all of the wgmma variant, finite
+   losses and grad norms.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -108,6 +113,11 @@ MAMBA = "mamba2-2.7b"
 MAMBA_SEQ = 2048     # the mamba2 trainer's tokens per step (batch 1)
 #: K3's inputs at mamba2-2.7b's layer: (B, S, H, P, G, N, chunk)
 MAMBA_LAYER = (1, MAMBA_SEQ, 80, 64, 1, 128, 256)
+#: and at zamba2-7b's SSM layer (112 heads of 64, 2 groups of state 64)
+ZAMBA_LAYER = (1, MAMBA_SEQ, 112, 64, 2, 64, 256)
+#: K3's wgmma passes, in launch order (device kernel names)
+K3_PASSES = ("ssd_fwd_state", "ssd_fwd_pass", "ssd_fwd_cb", "ssd_fwd_scan")
+K3_PROFILED_CALLS = 3
 #: the reference's SSD kernel-test shapes (tests/test_kernels.py:48-51)
 K3_TEST_SHAPES = [(1, 64, 2, 16, 1, 8, 16), (2, 128, 4, 32, 2, 16, 32),
                   (1, 128, 4, 64, 4, 32, 64), (1, 32, 2, 16, 2, 16, 32)]
@@ -230,7 +240,7 @@ def reset_counts(K, K2, K3) -> None:
     """Set every kernel's launch count to 0, just before a path runs."""
     K.pattern_summary.launches = 0
     K2.flash_attention.reset_counts()
-    K3.ssd_scan.launches = 0
+    K3.ssd_scan.reset_counts()
 
 
 def _rand(g, shape, dtype):
@@ -481,27 +491,41 @@ def k3_inputs(shape, seed: int, dtype, ranges: str = "model"):
 
 def k3_checks(K3) -> dict:
     """K3 against its plain version: f32 on the reference's kernel-test
-    shapes (max |err| / max |ref| < 2e-5); bf16
-    at mamba2-2.7b's layer shape from its init ranges and at the overflow
-    end of them (elementwise within one bf16 step), the overflow case
-    finite."""
+    shapes (max |err| / max |ref| < 2e-5, the SIMT kernel); bf16 at
+    mamba2-2.7b's layer shape from its init ranges and at the overflow end
+    of them, and at zamba2-7b's SSM layer (elementwise within one bf16 step,
+    the wgmma variant), every case finite.  Each case must run the variant
+    ``variant_for`` names."""
     worst_f32, worst_bf16, ratio_bf16 = 0.0, 0.0, 0.0
+
+    def run(ins, shape):
+        variant = K3.variant_for(ins[0].dtype, shape[3], shape[5], shape[6])
+        before = K3.ssd_scan.launches_by_variant[variant]
+        out = K3.ssd_scan.run(*ins, shape[-1])
+        torch.cuda.synchronize()
+        if K3.ssd_scan.launches_by_variant[variant] != before + 1:
+            raise AssertionError(f"K3 case {shape} did not run {variant}")
+        return out, variant
+
     for i, shape in enumerate(K3_TEST_SHAPES):
         ins = k3_inputs(shape, i, torch.float32, "test")
         ref = K3.ssd_scan_reference(*ins, shape[-1])
-        out = K3.ssd_scan.run(*ins, shape[-1])
-        torch.cuda.synchronize()
+        out, variant = run(ins, shape)
         if not (torch.isfinite(out).all() and out.shape == ref.shape):
             raise AssertionError(f"K3 output not finite or misshapen {shape}")
         rel = float((out - ref).abs().max() / ref.abs().max())
         worst_f32 = max(worst_f32, rel)
-        print(f"[k3 check] kernel test f32 (B,S,H,P,G,N,Q)={shape} P slice "
-              f"{K3.p_split_for(shape[3])}: max |err| / max |ref| {rel:.3g}")
-    for ranges in ("model", "overflow"):
-        ins = k3_inputs(MAMBA_LAYER, 7, torch.bfloat16, ranges)
-        ref = K3.ssd_scan_reference(*ins, MAMBA_LAYER[-1]).float()
-        out = K3.ssd_scan.run(*ins, MAMBA_LAYER[-1])
-        torch.cuda.synchronize()
+        print(f"[k3 check] kernel test f32 (B,S,H,P,G,N,Q)={shape} "
+              f"({variant}, P slice {K3.p_split_for(shape[3])}): max |err| / "
+              f"max |ref| {rel:.3g}")
+    for name, shape, ranges in (("mamba2-2.7b", MAMBA_LAYER, "model"),
+                                ("mamba2-2.7b", MAMBA_LAYER, "overflow"),
+                                ("zamba2-7b", ZAMBA_LAYER, "model")):
+        ins = k3_inputs(shape, 7, torch.bfloat16, ranges)
+        ref = K3.ssd_scan_reference(*ins, shape[-1]).float()
+        out, variant = run(ins, shape)
+        if variant != "wgmma":
+            raise AssertionError(f"K3 at {name}'s layer ran {variant}")
         if not (torch.isfinite(out).all() and out.dtype == torch.bfloat16
                 and out.shape == ref.shape):
             raise AssertionError(f"K3 output not finite or misshapen "
@@ -511,8 +535,8 @@ def k3_checks(K3) -> dict:
                                * ref.abs())).max())
         worst_bf16 = max(worst_bf16, float(diff.max()))
         ratio_bf16 = max(ratio_bf16, ratio)
-        print(f"[k3 check] mamba2-2.7b layer bf16 (B,S,H,P,G,N,Q)="
-              f"{MAMBA_LAYER}, {ranges} dt/A: finite, max |err| "
+        print(f"[k3 check] {name} layer bf16 ({variant}) (B,S,H,P,G,N,Q)="
+              f"{shape}, {ranges} dt/A: finite, max |err| "
               f"{float(diff.max()):.3g}, max |ref| "
               f"{float(ref.abs().max()):.3g}, worst err / limit {ratio:.3g}")
         del ins, ref, out, diff
@@ -526,14 +550,31 @@ def k3_checks(K3) -> dict:
 
 def k3_timing(K3, flush) -> dict:
     """K3 at mamba2-2.7b's layer shape (bf16, the init's dt/A ranges) by
-    CUDA events beside its bound and its plain version, and the plain SSD
+    CUDA events beside its bound and its plain version, each wgmma pass's
+    device time from one call under ``torch.profiler``, and the plain SSD
     backward the trainer runs for one layer."""
+    from torch.profiler import ProfilerActivity, profile
     ins = k3_inputs(MAMBA_LAYER, 11, torch.bfloat16, "model")
     Q = MAMBA_LAYER[-1]
     kms = timed_ms(lambda: K3.ssd_scan.run(*ins, Q), TIMED_LAUNCHES, flush)
     pms = timed_ms(lambda: K3.ssd_scan_reference(*ins, Q), 3, flush)
     bms, by = K3.bound_ms(ins[0], ins[1], ins[3], ins[4], Q)
-    split = K3.p_split_for(MAMBA_LAYER[3])
+    variant = K3.variant_for(torch.bfloat16, MAMBA_LAYER[3], MAMBA_LAYER[5],
+                             Q)
+    # each pass's mean device time over the calls the profiler recorded (a
+    # trace may miss the first kernels after it starts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(K3_PROFILED_CALLS):
+            flush.zero_()
+            K3.ssd_scan.run(*ins, Q)
+        torch.cuda.synchronize()
+    seen = {name: [] for name in K3_PASSES}
+    for e in device_events(prof):
+        for name in K3_PASSES:
+            if name in e.name():
+                seen[name].append(e.duration_ns() / 1e6)
+    passes = {name: sum(v) / len(v) if v else 0.0 for name, v in seen.items()}
     grad_ins = [t.detach().requires_grad_(True) for t in ins]
     dy = torch.randn_like(ins[0])
 
@@ -542,14 +583,22 @@ def k3_timing(K3, flush) -> dict:
             y = K3.ssd_scan_reference(*grad_ins, Q)
             torch.autograd.grad(y, grad_ins, dy)
     bwd = timed_ms(backward, 3, flush)
-    print(f"[k3 time] mamba2-2.7b layer bf16 (B,S,H,P,G,N,Q)={MAMBA_LAYER}: "
-          f"kernel {kms:.4f} ms (P slice {split}), bound {bms:.4f} ms by {by} "
+    print(f"[k3 time] mamba2-2.7b layer bf16 (B,S,H,P,G,N,Q)={MAMBA_LAYER} "
+          f"({variant}): kernel {kms:.4f} ms, bound {bms:.4f} ms by {by} "
           f"({bms / kms:.2%} of bound), plain {pms:.3f} ms; plain "
           f"SSD backward (recompute under autograd) {bwd:.3f} ms a layer; "
           f"library: none (no PyTorch call computes the SSD scan)")
+    print(f"[k3 time] {K3_PROFILED_CALLS} calls under torch.profiler, mean "
+          f"device ms by pass (kernels recorded): "
+          + ", ".join(f"{k} {v:.4f} ({len(seen[k])})"
+                      for k, v in passes.items())
+          + f"; sum {sum(passes.values()):.4f}")
+    if variant != "wgmma" or not all(passes.values()):
+        raise AssertionError(f"K3 at mamba2-2.7b's layer ran {variant}, "
+                             f"passes seen {passes}")
     del ins, grad_ins, dy
     return dict(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                backward_ms=bwd)
+                backward_ms=bwd, passes_ms=passes)
 
 
 def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
@@ -616,6 +665,24 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
 GEMM_NAMES = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "cublas")
 
 
+def device_events(prof) -> list:
+    """The raw device activities (kernels, copies, fills) of a
+    ``torch.profiler`` trace, read without building the op tree that
+    ``key_averages()`` builds (at mamba2-2.7b's 64 layers that took 29 s on
+    the host)."""
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation()]
+
+
+def device_ms_by_name(prof) -> dict:
+    """Device milliseconds by kernel name in a ``torch.profiler`` trace."""
+    by_name = {}
+    for e in device_events(prof):
+        by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    return by_name
+
+
 def step_profile(tr, params, opt_state, tag, label, fragment) -> dict:
     """One more full-depth step (after the counted ones) under
     ``torch.profiler``: device busy time by kernel class against the step's
@@ -627,16 +694,8 @@ def step_profile(tr, params, opt_state, tag, label, fragment) -> dict:
         tr.train_iteration(params, opt_state)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    # the raw device activities (kernels, copies, fills), read without
-    # building the op tree that key_averages() builds: at mamba2-2.7b's
-    # 64 layers that took 29 s on the host
     t = time.perf_counter()
-    by_name = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA \
-                and not e.is_user_annotation():
-            by_name[e.name()] = by_name.get(e.name(), 0.0) \
-                + e.duration_ns() / 1e6
+    by_name = device_ms_by_name(prof)
     busy = sum(by_name.values())
     own = sum(v for k, v in by_name.items() if fragment in k)
     gemm = sum(v for k, v in by_name.items()
@@ -779,17 +838,21 @@ def main() -> int:
             f"D={d} {K2.variant_for(dt, d)} "
             f"{K2.flash_attention.smem_bytes(dt, d)} bytes of shared memory"
             for d in K2.HEAD_DIMS))
-    sass = sass_counts(libs[1])
-    if sass is None:
-        print("[build] K2 SASS: cuobjdump not found, not counted")
-    else:
-        print(f"[build] K2 SASS: {sass['HGMMA']} HGMMA (wgmma) and "
-              f"{sass['UTMALDG']} UTMALDG (TMA load) instructions")
-        if not (sass["HGMMA"] and sass["UTMALDG"]):
-            raise AssertionError("K2's library holds no wgmma or no TMA load")
+    sass, sass3 = sass_counts(libs[1]), sass_counts(libs[2])
+    for name, counts in (("K2", sass), ("K3", sass3)):
+        if counts is None:
+            print(f"[build] {name} SASS: cuobjdump not found, not counted")
+            continue
+        print(f"[build] {name} SASS: {counts['HGMMA']} HGMMA (wgmma) and "
+              f"{counts['UTMALDG']} UTMALDG (TMA load) instructions")
+        if not (counts["HGMMA"] and counts["UTMALDG"]):
+            raise AssertionError(f"{name}'s library holds no wgmma or no "
+                                 f"TMA load")
     print(f"[build] K3 dynamic shared memory per block at mamba2-2.7b's "
-          f"layer (N 128, Q 256, P slice {K3.p_split_for(64)}): "
-          f"{K3.ssd_scan.smem_bytes(128, 256, 64)} bytes")
+          f"layer (N 128, Q 256): wgmma state / cb / scan passes "
+          f"{K3.ssd_scan.wgmma_smem_bytes(128, 256)} bytes; SIMT (f32, P "
+          f"slice {K3.p_split_for(64)}) {K3.ssd_scan.smem_bytes(128, 256, 64)}"
+          f" bytes")
 
     # the fleet at the paper's window: 256 workers, 20 s at 10 kHz
     t = time.perf_counter()
@@ -968,8 +1031,12 @@ def main() -> int:
           f"launches), plain SSD backward "
           f"{mcfg.num_layers * k3_time['backward_ms']:.3f} ms "
           f"({mcfg.num_layers} layers, timed alone); K3 launches in the "
-          f"{TRAIN_STEPS} counted steps {mtr['launches']}; peak "
-          f"{mtr['peak']} bytes, state {mtr['state_bytes']} bytes")
+          f"{TRAIN_STEPS} counted steps {mtr['launches']} "
+          f"{mtr['by_variant']}; peak {mtr['peak']} bytes, state "
+          f"{mtr['state_bytes']} bytes")
+    if mtr["by_variant"] != {"wgmma": mtr["launches"], "simt": 0}:
+        raise AssertionError("the mamba2 trainer's K3 launches were not all "
+                             "wgmma")
     clock.lap("mamba2 trainer")
 
     # -- 10. kernels line, card, contract line --------------------------------
@@ -1017,7 +1084,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:25",
+        "variant": "wgmma",
         "launches": mtr["launches"],
+        "launches_by_variant": mtr["by_variant"],
+        "sass": sass3,
         "shape": "bf16 x (1, 2048, 80, 64), B/C (1, 2048, 1, 128), dt f32, "
                  "chunk 256: one mamba2-2.7b layer",
         "max_abs_err": k3_err["bf16"],
@@ -1029,6 +1099,7 @@ def main() -> int:
         "library_ms": None,
         "library_call": "none: no PyTorch call computes the SSD scan",
         "plain_backward_ms": k3_time["backward_ms"],
+        "passes_ms": k3_time["passes_ms"],
     }]}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s; by phase "
           f"{clock.times}")

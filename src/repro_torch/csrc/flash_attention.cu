@@ -80,6 +80,9 @@
 // prologue and epilogue in turn, and the causal blocks are unequal), and
 // every wgmma is n64, so both consumers read each K tile from shared
 // memory separately.
+//
+// The Hopper building blocks (mbarriers, TMA, wgmma and its descriptors,
+// tensor-map encoding) live in sm90.cuh, shared with K3.
 #include <stdint.h>
 
 #ifdef __CUDACC__
@@ -89,7 +92,11 @@
 #include <stdio.h>
 #endif
 
+#include "sm90.cuh"
+
 namespace k2 {
+
+using namespace sm90;
 
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kBK = 32;          // kv rows per tile
@@ -287,8 +294,6 @@ constexpr int kWRows = 128;       // q rows per block: 2 consumers x 64
 constexpr int kWCols = 64;        // kv rows per tile
 constexpr int kWStages = 2;       // depth of the K/V ring
 constexpr int kWThreads = 384;    // producer + 2 consumer warpgroups
-constexpr int kAtomCols = 64;     // bf16 columns of one 128-byte swizzle atom
-constexpr int kRowBytes = 128;    // bytes of one atom row
 constexpr int kConsumerWarps = 8;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -321,20 +326,6 @@ template <int D> struct WLayout {
   static constexpr int kBytes = kBar + 8 * kNumBars + 1024;   // + alignment
 };
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (in 16-byte units), layout 1
-// (128-byte swizzle), base offset 0.  K-major (Q, K): the stride byte
-// offset steps 8 rows (1024 bytes), the leading one is unused.  MN-major
-// (V): the stride byte offset steps 8 k-rows (1024 bytes); the leading one
-// would step to the next 64-column atom, which an n64 product never does.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4)
-       | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16)
-       | ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32)
-       | (1ull << 62);
-}
-
 // kv tiles [jbeg, jend) holding an unmasked pair for q rows [q0, q0 + rows)
 __device__ __forceinline__ void tile_range(const WParams& p, int q0,
                                            int rows, int& jbeg, int& jend) {
@@ -348,149 +339,10 @@ __device__ __forceinline__ void tile_range(const WParams& p, int q0,
 }
 
 #ifdef __CUDACC__
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// make the initialised barriers visible to the other threads and to TMA
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
-                                              uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-// wait for the phase of parity `parity` to complete (try_wait suspends the
-// thread for a while before it reports failure).  No timeout: a trap timer
-// here made ptxas spill registers of the D = 256 consumer and serialize its
-// wgmma.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-
-// TMA: the box of `map` at coordinates (c0, c1, c2, c3) = (column, head,
-// row, batch) into shared memory at `dst`, completing on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
-      : "memory");
-}
-
-template <int N> __device__ __forceinline__ void reg_dealloc() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(N));
-}
-
-template <int N> __device__ __forceinline__ void reg_alloc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(N));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keep the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across its issue and its wait
-template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e]) :: "memory");
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// d (the m64n64 fp32 accumulator fragment) = A B^T (+ d if accumulate): A
-// 64 x 16 and B 64 x 16 bf16 from shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-      "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B: A 64 x 16 bf16 from registers (`a`, the k16 A fragment), B
-// 16 x 64 bf16 from shared memory, MN-major (the transpose bit set)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-      "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 #endif  // __CUDACC__
 
@@ -498,11 +350,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
 // whole range (2^x overflows to inf for large u, giving exactly 1)
 __device__ __forceinline__ float tanh_acc(float u) {
   return 1.0f - __fdividef(2.0f, ex2(u * (2.0f * kLog2e)) + 1.0f);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // One consumer warpgroup (`c` = 0 or 1) of head h, q rows [q0, q0 + 64):
@@ -556,7 +403,7 @@ __device__ __forceinline__ void consume(const WParams& p,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t col = (kk % 4) * 32;
-      wgmma_ss(sc, make_desc(sq + (kk / 4) * L::kQAtom + col, 16, 1024),
+      wgmma_ss<0, 0>(sc, make_desc(sq + (kk / 4) * L::kQAtom + col, 16, 1024),
                make_desc(sk + (kk / 4) * L::kKVAtom + col, 16, 1024), kk);
     }
     wgmma_commit();
@@ -617,13 +464,9 @@ __device__ __forceinline__ void consume(const WParams& p,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x0 = sc[8 * kk + 2 * e], x1 = sc[8 * kk + 2 * e + 1];
-        const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
-        hi[kk][e] = *reinterpret_cast<const uint32_t*>(&h2);
-        lo[kk][e] = pack_bf16(x0 - __bfloat162float(h2.x),
-                              x1 - __bfloat162float(h2.y));
-      }
+      for (int e = 0; e < 4; ++e)
+        split_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1], hi[kk][e],
+                   lo[kk][e]);
 
     // O += P V: per 16 kv rows, two n64 products (hi, lo) per 64-column
     // atom of V
@@ -792,53 +635,6 @@ static long long simt_smem(int D) {
   return 0;
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query, so the library needs no -lcuda
-typedef CUresult (*EncodeTiledFn)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-constexpr int kNoEncoder = -100000;   // error code: no cuTensorMapEncodeTiled
-
-// 4-D tensor map of a (B, S, heads, D) bf16 operand, dims innermost first
-// (D, heads, S, B), strides in elements; a box is 64 columns of `rows`
-// rows of one head, written to shared memory with the 128-byte swizzle.
-// Rows outside [0, S) read as zeros.  Returns 0, or minus the CUresult.
-static int make_map(CUtensorMap* map, const void* base, int D, int heads,
-                    int S, int B, long long sh, long long ss, long long sb,
-                    int rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return kNoEncoder;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kAtomCols, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -(int)r;
-}
-
 template <int D, int kHeads>
 static cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                                 const CUtensorMap& tv, const WParams& p,
@@ -917,12 +713,12 @@ extern "C" int k2_flash_attention_wgmma(
   // each K and V tile serves both; else 128 rows of one head
   const int heads_per_block = (H / KV) % 2 == 0 ? 2 : 1;
   CUtensorMap tq, tk, tv;
-  int r = k2::make_map(&tq, q, D, H, Sq, B, q_sh, q_ss, q_sb,
+  int r = sm90::make_map(&tq, q, D, H, Sq, B, q_sh, q_ss, q_sb,
                        k2::kWRows / heads_per_block);
   if (r == 0)
-    r = k2::make_map(&tk, k, D, KV, Skv, B, k_sh, k_ss, k_sb, k2::kWCols);
+    r = sm90::make_map(&tk, k, D, KV, Skv, B, k_sh, k_ss, k_sb, k2::kWCols);
   if (r == 0)
-    r = k2::make_map(&tv, v, D, KV, Skv, B, v_sh, v_ss, v_sb, k2::kWCols);
+    r = sm90::make_map(&tv, v, D, KV, Skv, B, v_sh, v_ss, v_sb, k2::kWCols);
   if (r != 0) return r;
   k2::WParams p;
   p.o = o; p.lse = lse; p.Sq = Sq; p.H = H; p.KV = KV;
@@ -952,14 +748,6 @@ extern "C" long long k2_smem_bytes(int dtype, int D) {
 }
 
 extern "C" const char* k2_error_string(int code) {
-  static char buf[96];
-  if (code == k2::kNoEncoder)
-    return "cuTensorMapEncodeTiled not available";
-  if (code < 0) {
-    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed: CUresult %d",
-             -code);
-    return buf;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return sm90::error_string(code);
 }
 #endif  // __CUDACC__

@@ -1,10 +1,12 @@
 """Build helper shared by the port's CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled by
-``nvcc`` for ``sm_90a`` into a shared library under ``_build/`` beside this
-package (the file name carries a hash of the source and flags, so an edited
-source rebuilds) and loaded with ``ctypes`` by its wrapper.  ``build_all``
-starts one ``nvcc`` per source at once and waits for all of them.
+Each kernel is one ``csrc/*.cu`` file with a plain C interface (it may
+include the ``csrc/*.cuh`` headers), compiled by ``nvcc`` for ``sm_90a``
+into a shared library under ``_build/`` beside this package (the file name
+carries a hash of the source, the headers and the flags, so an edited
+source or header rebuilds) and loaded with ``ctypes`` by its wrapper.
+``build_all`` starts one ``nvcc`` per source at once and waits for all of
+them.
 """
 from __future__ import annotations
 
@@ -31,10 +33,14 @@ def nvcc() -> str:
 
 
 def library_path(source: Path, stem: str) -> Path:
-    """Where the library built from ``source`` with ``NVCC_FLAGS`` lives."""
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{stem}_{key}.so"
+    """Where the library built from ``source`` with ``NVCC_FLAGS`` lives: its
+    name carries a hash of the source, of every header in ``CSRC`` (a
+    source may include any of them) and of the flags."""
+    key = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{stem}_{key.hexdigest()[:16]}.so"
 
 
 def build_all(specs: Sequence[Tuple[Path, str]]) -> List[Path]:

@@ -13,14 +13,35 @@ zero at the start:
 
 f32 inside, y in x's dtype, no final state: the function of the JAX
 reference's Pallas TPU kernel ``repro/kernels/ssd_scan.py::_kernel``, which
-the kernel in ``csrc/ssd_scan.cu`` replaces.  ``ssd_scan`` is a
-``torch.autograd.Function``: its forward is the kernel on a CUDA tensor and
+the kernels in ``csrc/ssd_scan.cu`` replace.  ``ssd_scan`` is a
+``torch.autograd.Function``: its forward is a kernel on a CUDA tensor and
 ``ssd_scan_reference``, the plain torch version, on a CPU tensor, so both
 devices compute one function.  The reference has no backward kernel, so the
 backward recomputes the plain version under autograd and returns the
 gradients of x, dt, A, Bm and Cm.  The plain version masks every decay
 difference before its exponential, so its gradients stay finite where the
 upper triangle would overflow.
+
+Which kernel runs is one fixed rule, ``variant_for(dtype, P, N, Q)``,
+decided before any launch:
+
+* bfloat16 x/Bm/Cm with P in (64, 128) and N and Q multiples of 64 up to
+  256 (mamba2-2.7b's layer, zamba2-7b's SSM layer) run ``"wgmma"``: four
+  device kernels in one stream (``ssd_fwd_state``, ``ssd_fwd_pass``,
+  ``ssd_fwd_cb``, ``ssd_fwd_scan``) that compute every product in parallel
+  over (batch, head, chunk) on tensor-core tiles fed by TMA and run only an
+  elementwise pass in chunk order; C B^T is computed once per group.  The
+  wrapper allocates their f32 scratch (``wgmma_scratch``).  x, Bm and Cm
+  must suit TMA (``flash_attention.tma_strides`` raises ``ValueError``).
+* everything else, f32 at any shape among it, runs ``"simt"``: one kernel
+  (``ssd_fwd``) of fp32 FMAs on the CUDA cores that carries each block's
+  state slice through the chunks (``p_split_for``).  f32 must meet the
+  reference's 2e-5, which tensor cores (TF32 for f32 inputs) cannot.
+
+A failed launch of either variant raises; nothing retries on the other or
+on the plain version.  ``launches`` counts calls of K3, one per layer
+forward however many device kernels it runs, and ``launches_by_variant``
+each variant's.
 
 Bound on an H100 (``bound_ms``): the larger of the bytes (x, dt, Bm, Cm
 read once, y written once, at 3.35 TB/s) and the operations the function
@@ -38,12 +59,17 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import tma_strides
 
 SOURCE = _build.CSRC / "ssd_scan.cu"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("wgmma", "simt")
 
-#: widths of the P slice one block owns (``dispatch`` in the source)
+#: widths of the P slice one block of the SIMT kernel owns (``dispatch`` in
+#: the source)
 P_SPLITS = (16, 32, 64)
+#: the wgmma variant's tile: P, N and Q are multiples of it
+WGMMA_TILE = 64
 #: the longest chunk the kernel's shared-memory plan takes
 MAX_CHUNK = 1024
 
@@ -147,13 +173,26 @@ def ssd_oracle(x, dt, A, Bm, Cm) -> torch.Tensor:
     return torch.stack(ys, dim=1).to(x.dtype)
 
 
+def variant_for(dtype: torch.dtype, P: int, N: int, Q: int) -> str:
+    """The kernel that runs x/Bm/Cm of ``dtype`` with head dim ``P``, state
+    ``N`` and chunk ``Q``: ``"wgmma"`` for bfloat16 with P in (64, 128) and
+    N and Q multiples of 64 up to 256, else ``"simt"`` (module docstring).
+    Raises ``TypeError`` on a type K3 does not take."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"K3 takes float32 or bfloat16, got {dtype}")
+    tile = WGMMA_TILE
+    fits = (P in (tile, 2 * tile) and 0 < N <= 4 * tile and N % tile == 0
+            and 0 < Q <= 4 * tile and Q % tile == 0)
+    return "wgmma" if dtype == torch.bfloat16 and fits else "simt"
+
+
 def p_split_for(P: int) -> int:
-    """The P slice one block owns: the widest of ``P_SPLITS`` dividing P.
-    At mamba2-2.7b's batch-1 layer that is all 64 columns, 80 blocks for
-    132 SMs: on an H100 80GB HBM3 at 700 W the kernel took 2.19 ms there,
-    against 2.52 ms with two slices of 32 (160 blocks) and 3.35 ms with
-    four (PERF.md, K3): recomputing C B^T for each slice costs more than
-    the idle SMs."""
+    """The P slice one block of the SIMT variant owns: the widest of
+    ``P_SPLITS`` dividing P.  At mamba2-2.7b's batch-1 layer that is all 64
+    columns, 80 blocks for 132 SMs: on an H100 80GB HBM3 at 700 W that
+    kernel took 2.19 ms there, against 2.52 ms with two slices of 32 (160
+    blocks) and 3.35 ms with four (PERF.md, K3): recomputing C B^T for each
+    slice costs more than the idle SMs."""
     fits = [s for s in P_SPLITS if P % s == 0]
     if not fits:
         raise ValueError(f"K3 takes head dims that are multiples of 16, "
@@ -161,42 +200,77 @@ def p_split_for(P: int) -> int:
     return max(fits)
 
 
+def wgmma_scratch(B: int, S: int, H: int, P: int, G: int, N: int, Q: int,
+                  device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The wgmma variant's f32 scratch, views of one ``torch.empty``
+    buffer: ``cum`` (B, H, S), the chunk states ``(B, H, S/Q, N, P)`` (each
+    chunk's contribution, then the state it starts from) and C B^T ``(B, G,
+    S/Q, T (T + 1) / 2, 64 * 64)``, one 64 x 64 tile per (t, s) tile pair at
+    or below the diagonal, T = Q / 64."""
+    nc, nt = S // Q, Q // WGMMA_TILE
+    shapes = ((B, H, S), (B, H, nc, N, P),
+              (B, G, nc, nt * (nt + 1) // 2, WGMMA_TILE * WGMMA_TILE))
+    sizes = [math.prod(s) for s in shapes]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    return tuple(part.view(shape) for part, shape
+                 in zip(buf.split(sizes), shapes))
+
+
 def build() -> Path:
-    """Compile the CUDA source unless built already; returns the library
-    (``repro_torch.kernels._build``)."""
+    """Compile the CUDA source (both variants) unless built already;
+    returns the library (``repro_torch.kernels._build``)."""
     return _build.build(SOURCE, "k3_ssd_scan")
 
 
 class SSDScan:
-    """The K3 wrapper.  ``launches`` counts kernel launches (a plain
-    integer, never incremented on the CPU path).  Calling it runs the
-    autograd function; ``run`` is the forward alone."""
+    """The K3 wrapper.  ``launches`` counts calls that launched K3 and
+    ``launches_by_variant`` those of each variant (plain integers, never
+    incremented on the CPU path).  Calling it runs the autograd function;
+    ``run`` is the forward alone."""
 
     def __init__(self):
-        self.launches = 0
+        self.reset_counts()
         self._lib: Optional[ctypes.CDLL] = None
 
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
     def library(self) -> ctypes.CDLL:
-        """Build (at first use) and load the kernel's shared library."""
+        """Build (at first use) and load the kernels' shared library."""
         if self._lib is None:
             lib = ctypes.CDLL(str(build()))
             ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
             lib.k3_ssd_scan.argtypes = (
                 [p] * 6 + [i] * 7 + [ll] * 12 + [i, i, p])
             lib.k3_ssd_scan.restype = ctypes.c_int
+            lib.k3_ssd_scan_wgmma.argtypes = (
+                [p] * 9 + [i] * 7 + [ll] * 12 + [p])
+            lib.k3_ssd_scan_wgmma.restype = ctypes.c_int
             lib.k3_smem_bytes.argtypes = [i, i, i]
             lib.k3_smem_bytes.restype = ll
+            lib.k3_wgmma_smem_bytes.argtypes = [i, i,
+                                                ctypes.POINTER(ll)]
+            lib.k3_wgmma_smem_bytes.restype = None
             lib.k3_error_string.argtypes = [i]
             lib.k3_error_string.restype = ctypes.c_char_p
             self._lib = lib
         return self._lib
 
     def smem_bytes(self, N: int, Q: int, P: int) -> int:
-        """Dynamic shared memory of one block, in bytes, at head dim P."""
+        """Dynamic shared memory of one block of the SIMT kernel, in bytes,
+        at head dim P."""
         return int(self.library().k3_smem_bytes(N, Q, p_split_for(P)))
 
+    def wgmma_smem_bytes(self, N: int, Q: int) -> Tuple[int, int, int]:
+        """Dynamic shared memory of one block of the wgmma variant's
+        ``ssd_fwd_state``, ``ssd_fwd_cb`` and ``ssd_fwd_scan``, in bytes."""
+        out = (ctypes.c_longlong * 3)()
+        self.library().k3_wgmma_smem_bytes(N, Q, out)
+        return tuple(int(v) for v in out)
+
     def run(self, x, dt, A, Bm, Cm, chunk: int = 128) -> torch.Tensor:
-        """y: the kernel on a CUDA tensor, the plain version on a CPU one."""
+        """y: a kernel on a CUDA tensor, the plain version on a CPU one."""
         if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 \
                 or Bm.dim() != 4 or Cm.dim() != 4:
             raise ValueError("K3 takes x (B,S,H,P), dt (B,S,H), A (H,), "
@@ -226,28 +300,46 @@ class SSDScan:
         if dt.dtype != torch.float32 or A.dtype != torch.float32:
             raise TypeError(f"K3 takes float32 dt and A, got {dt.dtype}, "
                             f"{A.dtype}")
-        if Q > MAX_CHUNK:
-            raise ValueError(f"K3 takes chunks up to {MAX_CHUNK}, got {Q}")
-        ps = p_split_for(P)
+        variant = variant_for(x.dtype, P, N, Q)
+        if variant == "simt":
+            if Q > MAX_CHUNK:
+                raise ValueError(f"K3 takes chunks up to {MAX_CHUNK}, got "
+                                 f"{Q}")
+            ps = p_split_for(P)
         if any(t.stride(-1) != 1 for t in (x, Bm, Cm)):
             raise ValueError("K3 takes x, Bm, Cm whose last dim is "
                              "contiguous")
+        if variant == "wgmma":
+            strides = [s for t in (x, Bm, Cm) for s in tma_strides(t)]
+        else:
+            strides = [s for t in (x, Bm, Cm) for s in t.stride()[:3]]
         dt = dt.contiguous()
         A = A.contiguous()
         y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+        lib = self.library()
         with torch.cuda.device(x.device):
-            code = self.library().k3_ssd_scan(
-                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                Cm.data_ptr(), y.data_ptr(), B, S, H, P, G, N, Q,
-                *x.stride()[:3], *Bm.stride()[:3], *Cm.stride()[:3],
-                *y.stride()[:3], ps, DTYPE_CODES[x.dtype],
-                torch.cuda.current_stream(x.device).cuda_stream)
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            if variant == "wgmma":
+                scratch = wgmma_scratch(B, S, H, P, G, N, Q, x.device)
+                code = lib.k3_ssd_scan_wgmma(
+                    x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                    Cm.data_ptr(), y.data_ptr(),
+                    *(t.data_ptr() for t in scratch), B, S, H, P, G, N, Q,
+                    *strides, *y.stride()[:3], stream)
+            else:
+                code = lib.k3_ssd_scan(
+                    x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                    Cm.data_ptr(), y.data_ptr(), B, S, H, P, G, N, Q,
+                    *strides, *y.stride()[:3], ps, DTYPE_CODES[x.dtype],
+                    stream)
         if code != 0:
-            msg = self.library().k3_error_string(code).decode()
-            raise RuntimeError(f"K3 launch on x {tuple(x.shape)} Bm "
-                               f"{tuple(Bm.shape)} {x.dtype} chunk {Q} "
-                               f"failed: CUDA error {code} ({msg})")
+            msg = lib.k3_error_string(code).decode()
+            raise RuntimeError(f"K3 ({variant}) launch on x "
+                               f"{tuple(x.shape)} Bm {tuple(Bm.shape)} "
+                               f"{x.dtype} chunk {Q} failed: error {code} "
+                               f"({msg})")
         self.launches += 1
+        self.launches_by_variant[variant] += 1
         return y
 
     def __call__(self, x, dt, A, Bm, Cm, chunk: int = 128) -> torch.Tensor:

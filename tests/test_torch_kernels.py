@@ -16,8 +16,12 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS, VARIANTS,
 from repro_torch.kernels.pattern_summary import (bound_ms, pattern_summary,
                                                  pattern_summary_reference,
                                                  threads_for)
+from repro_torch.configs.registry import ARCHS, reduced
+from repro_torch.kernels import _build
+from repro_torch.kernels.ssd_scan import VARIANTS as K3_VARIANTS
 from repro_torch.kernels.ssd_scan import (ssd_oracle, ssd_scan,
                                           ssd_scan_reference)
+from repro_torch.kernels.ssd_scan import variant_for as k3_variant_for
 
 from _torch_inputs import EDGE_EXPECTED, case, edge_rows, long_row, matrices
 # autouse fixture: torch on one CPU thread
@@ -108,6 +112,81 @@ def test_tma_strides_rejects_misaligned_operands(offset, strides):
     t = base.as_strided((2, 64, 8, 64), strides, offset)
     with pytest.raises(ValueError):
         tma_strides(t)
+
+
+def test_library_path_changes_with_a_header(tmp_path, monkeypatch):
+    """An edited ``csrc/*.cuh`` (sm90.cuh, included by K2 and K3) rebuilds
+    every kernel: the library's path hashes the headers beside the source."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    src, header = tmp_path / "k.cu", tmp_path / "sm90.cuh"
+    src.write_text('#include "sm90.cuh"\n')
+    header.write_text("// v1\n")
+    first = _build.library_path(src, "k")
+    assert first.parent == tmp_path / "_build"
+    assert _build.library_path(src, "k") == first
+    header.write_text("// v2\n")
+    second = _build.library_path(src, "k")
+    assert second != first
+    src.write_text('#include "sm90.cuh"\n// edited\n')
+    assert _build.library_path(src, "k") not in (first, second)
+
+
+def _ssm_shape(cfg, seq: int):
+    """(P, N, Q) of one SSM layer of ``cfg`` at ``seq`` tokens."""
+    return cfg.ssm_head_dim, cfg.ssm_state, min(cfg.ssm_chunk, seq)
+
+
+@pytest.mark.parametrize("dtype,shape,want", [
+    (torch.bfloat16, _ssm_shape(ARCHS["mamba2-2.7b"], 2048), "wgmma"),
+    (torch.bfloat16, _ssm_shape(ARCHS["zamba2-7b"], 2048), "wgmma"),
+    (torch.bfloat16, (128, 256, 64), "wgmma"),
+    (torch.bfloat16, (64, 192, 192), "wgmma"),
+    (torch.float32, _ssm_shape(ARCHS["mamba2-2.7b"], 2048), "simt"),
+    (torch.float32, (128, 64, 128), "simt"),
+    (torch.bfloat16, _ssm_shape(reduced(ARCHS["mamba2-2.7b"]), 64), "simt"),
+    (torch.bfloat16, (32, 16, 32), "simt"),        # kernel-test shape
+    (torch.bfloat16, (32, 24, 96), "simt"),        # ragged N and chunk
+    (torch.bfloat16, (16, 16, 1024), "simt"),      # the longest chunk
+    (torch.bfloat16, (64, 128, 96), "simt"),       # Q not a multiple of 64
+    (torch.bfloat16, (64, 320, 256), "simt"),      # N past 256
+    (torch.bfloat16, (256, 128, 256), "simt"),     # P past 128
+    (torch.bfloat16, (192, 128, 256), "simt"),     # P 192
+])
+def test_k3_variant_rule(dtype, shape, want):
+    """bf16 at mamba2-2.7b's and zamba2-7b's layers (P 64; N 128 or 64;
+    chunk 256) and other multiples of 64 up to (128, 256, 256) run the
+    wgmma variant; f32 at any shape and the reduced or ragged shapes the
+    SIMT kernel."""
+    assert k3_variant_for(dtype, *shape) == want and want in K3_VARIANTS
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64,
+                                   torch.int32])
+def test_k3_variant_rule_rejects_what_k3_does_not_take(dtype):
+    with pytest.raises(TypeError):
+        k3_variant_for(dtype, 64, 128, 256)
+
+
+def test_k3_cpu_path_counts_no_launch():
+    """A CPU tensor at a wgmma shape runs the plain version and counts no
+    launch, by variant or in total."""
+    g = np.random.default_rng(0)
+    B, S, H, P, G, N, Q = 1, 128, 2, 64, 1, 64, 64
+    x = torch.from_numpy(g.standard_normal((B, S, H, P),
+                                           dtype=np.float32)).bfloat16()
+    Bm = torch.from_numpy(g.standard_normal((B, S, G, N),
+                                            dtype=np.float32)).bfloat16()
+    Cm = torch.from_numpy(g.standard_normal((B, S, G, N),
+                                            dtype=np.float32)).bfloat16()
+    dt = torch.from_numpy(g.uniform(1e-3, 0.1, (B, S, H)).astype(np.float32))
+    A = -torch.from_numpy(g.uniform(1, 16, H).astype(np.float32))
+    assert k3_variant_for(x.dtype, P, N, Q) == "wgmma"
+    total, before = ssd_scan.launches, dict(ssd_scan.launches_by_variant)
+    y = ssd_scan.run(x, dt, A, Bm, Cm, Q)
+    assert ssd_scan.launches == total
+    assert ssd_scan.launches_by_variant == before
+    assert torch.equal(y, ssd_scan_reference(x, dt, A, Bm, Cm, Q))
 
 
 # -- on the card ----------------------------------------------------------------
@@ -291,24 +370,49 @@ K3_MODEL_SHAPES = [(2, 192, 3, 32, 3, 24, 96), (1, 1024, 1, 16, 1, 16, 1024),
                    (1, 512, 4, 64, 1, 128, 256)]
 
 
-def _ssd(shape, seed, dtype, model_ranges=False):
+#: bf16 shapes of the wgmma variant, each with its dt/A ranges and whether
+#: B and C are strided views of one (B, S, 2, G, N) tensor: mamba2-2.7b's
+#: widths on 4 heads (and at the overflow end of its ranges), G 2 with N 64
+#: (zamba2-7b's), chunks 64 and 128, P 128, N 192 at chunk 192, and N 256
+#: at chunk 256 (whose scan pass takes two t tiles a block)
+K3_WGMMA_CASES = [((1, 512, 4, 64, 1, 128, 256), "model", False),
+                  ((1, 512, 4, 64, 1, 128, 256), "overflow", False),
+                  ((2, 512, 8, 64, 2, 64, 256), "model", False),
+                  ((1, 256, 4, 64, 1, 128, 64), "model", False),
+                  ((2, 256, 4, 64, 2, 64, 128), "model", False),
+                  ((1, 256, 2, 128, 1, 64, 128), "model", False),
+                  ((2, 256, 4, 64, 2, 128, 128), "model", True),
+                  ((1, 384, 2, 64, 1, 192, 192), "overflow", True),
+                  ((1, 512, 2, 64, 1, 256, 256), "model", False)]
+
+
+def _ssd(shape, seed, dtype, model_ranges=False, overflow=False,
+         strided=False):
     """x, B, C standard normal; dt and A as tests/test_kernels.py draws
     them, or from mamba2's init ranges (dt log-uniform in [1e-3, 0.1], A
-    in [-16, -1])."""
+    in [-16, -1]), or at the far end of those (``overflow``: dt 0.1, A
+    -16, where the upper triangle's decay overflows float32); with
+    ``strided`` B and C are views of one (B, S, 2, G, N) tensor."""
     B, S, H, P, G, N, _ = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*s):
         return torch.randn(s, generator=g, device="cuda")
-    if model_ranges:
+    if overflow:
+        dt = torch.full((B, S, H), 0.1, device="cuda")
+        A = torch.full((H,), -16.0, device="cuda")
+    elif model_ranges:
         u = torch.rand((B, S, H), generator=g, device="cuda")
         dt = torch.exp(u * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
         A = -(1.0 + 15.0 * torch.rand(H, generator=g, device="cuda"))
     else:
         dt = torch.nn.functional.softplus(randn(B, S, H))
         A = -torch.exp(torch.rand(H, generator=g, device="cuda"))
-    return (randn(B, S, H, P).to(dtype), dt, A, randn(B, S, G, N).to(dtype),
-            randn(B, S, G, N).to(dtype))
+    x = randn(B, S, H, P).to(dtype)
+    if strided:
+        bc = randn(B, S, 2, G, N).to(dtype)
+        return x, dt, A, bc[:, :, 0], bc[:, :, 1]
+    return x, dt, A, randn(B, S, G, N).to(dtype), randn(B, S, G, N).to(dtype)
 
 
 def _cum_step(dt, A, chunk: int) -> float:
@@ -331,7 +435,9 @@ def test_k3_matches_plain_version_on_card():
     softplus(normal) dt over the 1024-row chunk reaches ``|cum|`` ~ 1200,
     a step of 1.2e-4.  bf16, dt and A from mamba2's init ranges:
     elementwise within one bf16 step of the plain version, 1e-3 + 2^-7
-    |ref|, since both round an f32 sum to bf16."""
+    |ref|, since both round an f32 sum to bf16.  Then the wgmma variant's
+    bf16 cases (``K3_WGMMA_CASES``), each of which must run ``wgmma``, stay
+    finite and meet the same elementwise limit."""
     _cuda()
     for i, shape in enumerate(K3_TEST_SHAPES + K3_MODEL_SHAPES):
         chunk = shape[-1]
@@ -354,6 +460,23 @@ def test_k3_matches_plain_version_on_card():
         out = ssd_scan.run(*ins, chunk).float()
         assert bool(((out - ref).abs()
                      <= 1e-3 + 2.0 ** -7 * ref.abs()).all()), shape
+    for i, (shape, ranges, strided) in enumerate(K3_WGMMA_CASES):
+        chunk = shape[-1]
+        ins = _ssd(shape, 100 + i, torch.bfloat16, model_ranges=True,
+                   overflow=ranges == "overflow", strided=strided)
+        assert k3_variant_for(torch.bfloat16, shape[3], shape[5],
+                              shape[6]) == "wgmma"
+        before = dict(ssd_scan.launches_by_variant)
+        out = ssd_scan.run(*ins, chunk)
+        ref = ssd_scan_reference(*ins, chunk).float()
+        torch.cuda.synchronize()
+        assert ssd_scan.launches_by_variant == dict(
+            before, wgmma=before["wgmma"] + 1), shape
+        assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+        out = out.float()
+        assert bool(torch.isfinite(out).all()), (shape, ranges)
+        assert bool(((out - ref).abs()
+                     <= 1e-3 + 2.0 ** -7 * ref.abs()).all()), (shape, ranges)
 
 
 @pytest.mark.gpu
