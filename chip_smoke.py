@@ -14,7 +14,12 @@ rest) with nvcc for sm_90a, all at once, prints their ptxas reports and how
 many HGMMA and UTMALDG instructions K2's and K3's SASS hold, and then runs
 these phases, each checked:
 
-1. K1 against its plain torch version on the card, timed;
+1. K1 against its plain torch version on the card under every variant that
+   takes each input (``"warp"`` for rows up to 2048 samples, ``"block"`` for
+   any), with each fleet group's count of one-run and general-path rows;
+   timed per group by ``torch.profiler`` device time and by CUDA events,
+   beside its bound, its plain version and the pageable and pinned H2D
+   copies;
 2. the port's fleet-mode diagnosis path through ``PerfTrackerService`` on the
    ring fault of ``examples/diagnose_ring_fault.py`` and on a 256-worker
    fleet at the paper's profiling window (20 s at 10 kHz);
@@ -198,18 +203,73 @@ def adversarial_matrices(rng: np.random.Generator):
     }
 
 
-def compare(K, u_np: np.ndarray, stage):
-    """Kernel vs plain version on the card: (count-mismatch rows, max abs
-    error of mean/std)."""
+def compare(K, u_np: np.ndarray, variant: str):
+    """Kernel (forced to ``variant``) vs plain version on the card:
+    (count-mismatch rows, max abs error of mean/std)."""
     u = torch.from_numpy(u_np).cuda()
     ref = K.pattern_summary_reference(u)
-    out = K.pattern_summary(u, stage=stage)
+    out = K.pattern_summary(u, variant=variant)
     torch.cuda.synchronize()
     mism = int((out[:, 2] != ref[:, 2]).sum())
     err = float((out[:, :2] - ref[:, :2]).abs().max())
     if not (torch.isfinite(out).all() and out.shape == ref.shape):
         raise AssertionError("kernel output not finite or misshapen")
     return mism, err
+
+
+def row_paths(u: np.ndarray) -> dict:
+    """How many rows of ``u`` each path of K1 finishes: all-zero rows and
+    one-run rows in pass 0 (positive samples count == last - first + 1),
+    the rest in the general path."""
+    pos = u > 0
+    count = pos.sum(axis=1)
+    first = pos.argmax(axis=1)
+    last = u.shape[1] - 1 - pos[:, ::-1].argmax(axis=1)
+    zero = ~(u.sum(axis=1, dtype=np.float64) > 0)
+    one = ~zero & (count == last - first + 1)
+    return {"all_zero": int(zero.sum()), "one_run": int(one.sum()),
+            "general": int((~zero & ~one).sum())}
+
+
+def k1_device_ms(K, u: torch.Tensor, flush: torch.Tensor,
+                 calls: int = 3) -> tuple:
+    """K1's device time per call from ``torch.profiler``: each K1 kernel's
+    mean duration over ``calls`` calls (L2 flushed before each), summed
+    over the kernels one call runs; and the means by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    K.pattern_summary(u)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            K.pattern_summary(u)
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in device_events(prof):
+        if "k1_" in e.name():
+            by_name.setdefault(e.name(), []).append(e.duration_ns() / 1e6)
+    means = {name: sum(v) / len(v) for name, v in by_name.items()}
+    return sum(means.values()), means
+
+
+def share(bound: float, ms: float) -> str:
+    """The bound as a share of a measured time ("not measured" for none)."""
+    return f"{bound / ms:.1%}" if ms > 0 else "not measured"
+
+
+def h2d_ms(u_np: np.ndarray) -> tuple:
+    """(pageable, pinned) ms of moving ``u_np`` to the card, by CUDA events:
+    the backend's route (``torch.from_numpy(u).to("cuda")``), and a copy
+    into a pinned host buffer (allocated once, outside the timing) followed
+    by a non-blocking copy to the card."""
+    pinned = torch.empty(u_np.shape, dtype=torch.float32, pin_memory=True)
+
+    def via_pinned():
+        pinned.copy_(torch.from_numpy(u_np))
+        pinned.to("cuda", non_blocking=True)
+
+    return (timed_ms(lambda: torch.from_numpy(u_np).to("cuda"), 3),
+            timed_ms(via_pinned, 3))
 
 
 def same_diagnosis(a, b, fleet_size: int) -> None:
@@ -238,7 +298,7 @@ def same_diagnosis(a, b, fleet_size: int) -> None:
 
 def reset_counts(K, K2, K3) -> None:
     """Set every kernel's launch count to 0, just before a path runs."""
-    K.pattern_summary.launches = 0
+    K.pattern_summary.reset_counts()
     K2.flash_attention.reset_counts()
     K3.ssd_scan.reset_counts()
 
@@ -336,6 +396,23 @@ def sass_counts(lib: Path) -> dict | None:
                           text=True, check=True).stdout
     return {op: len(re.findall(rf"\b{op}\b", sass))
             for op in ("HGMMA", "UTMALDG")}
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spill-store bytes of each kernel in an ``-Xptxas -v``
+    report, by name (template arguments of K1's kernels kept as ``<K>``)."""
+    out = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        m = re.search(r"(k1_[a-z_]+?)(?:ILi(\d+)E)?E", mangled)
+        name = mangled if m is None else \
+            m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        if regs and spill:
+            out[name] = {"registers": int(regs.group(1)),
+                         "spill_bytes": int(spill.group(1))}
+    return out
 
 
 def _sdpa(q, k, v, window: int):
@@ -830,6 +907,10 @@ def main() -> int:
           f"{time.perf_counter() - t:.2f}s (parallel nvcc)")
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip())
+    k1_ptxas = ptxas_summary(libs[0].with_suffix(".log").read_text())
+    print("[build] K1 registers / spill-store bytes: " + ", ".join(
+        f"{name} {v['registers']}/{v['spill_bytes']}"
+        for name, v in sorted(k1_ptxas.items())))
     K.pattern_summary.library()
     K2.flash_attention.library()
     K3.ssd_scan.library()
@@ -880,36 +961,63 @@ def main() -> int:
     inputs.update(adversarial_matrices(rng))
     mismatch_rows, max_err = 0, 0.0
     for name, u in inputs.items():
-        for stage in (None, False):
-            m, e = compare(K, u, stage)
+        for variant in K.VARIANTS:
+            if variant == "warp" and u.shape[1] > K.WARP_MAX_N:
+                continue
+            m, e = compare(K, u, variant)
             mismatch_rows += m
             max_err = max(max_err, e)
-            print(f"[check] {name} stage={stage}: count mismatches {m}, "
+            print(f"[check] {name} variant={variant}: count mismatches {m}, "
                   f"max |mean/std err| {e:.3g}")
     if mismatch_rows or max_err > ATOL:
         raise AssertionError(f"K1 disagrees with its plain version: "
                              f"{mismatch_rows} rows, err {max_err}")
+    for g in groups:
+        print(f"[check] fleet_group{g.u.shape} rows by path: "
+              f"{row_paths(g.u)}; live samples {int(g.lengths.sum())} of "
+              f"{g.u.size} ({g.lengths.sum() / g.u.size:.1%})")
+    live = sum(int(g.lengths.sum()) for g in groups)
+    print(f"[check] fleet: live samples {live} of "
+          f"{sum(g.u.size for g in groups)} "
+          f"({live / sum(g.u.size for g in groups):.1%}); the rest is "
+          f"padding that K1 reads and its bytes bound counts")
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device="cuda")
-    k_ms = p_ms = h_ms = b_ms = 0.0
+    k1_sums = dict.fromkeys(("device", "ms", "block_ms", "plain", "h2d",
+                             "h2d_pinned", "bound"), 0.0)
     for g in groups:
         E, n = g.u.shape
         u = torch.from_numpy(g.u).cuda()
-        kms = timed_ms(lambda: K.pattern_summary(u), TIMED_LAUNCHES, flush)
-        pms = timed_ms(lambda: K.pattern_summary_reference(u), 2, flush)
-        hms = timed_ms(lambda: torch.from_numpy(g.u).to("cuda"), 3)
-        bms = K.bound_ms(E, n)
-        k_ms, p_ms, h_ms, b_ms = k_ms + kms, p_ms + pms, h_ms + hms, b_ms + bms
-        print(f"[time] K1 ({E}, {n}) threads={K.threads_for(n)} "
-              f"staged={n <= K.pattern_summary.stage_limit(u.device)}: "
-              f"kernel {kms:.4f} ms, bound {bms:.4f} ms "
-              f"({bms / kms:.1%} of bound), plain {pms:.3f} ms, "
-              f"h2d {hms:.3f} ms")
+        dev, by_kernel = k1_device_ms(K, u, flush)
+        t = dict(
+            device=dev,
+            ms=timed_ms(lambda: K.pattern_summary(u), TIMED_LAUNCHES, flush),
+            block_ms=timed_ms(lambda: K.pattern_summary(u, variant="block"),
+                              TIMED_LAUNCHES, flush),
+            plain=timed_ms(lambda: K.pattern_summary_reference(u), 2, flush),
+            bound=K.bound_ms(E, n))
+        t["h2d"], t["h2d_pinned"] = h2d_ms(g.u)
+        for key in k1_sums:
+            k1_sums[key] += t[key]
+        print(f"[time] K1 ({E}, {n}) variant={K.variant_for(n)} "
+              f"lane_samples={K.lane_samples_for(n)}: device "
+              f"{t['device']:.4f} ms ({share(t['bound'], t['device'])} of "
+              f"bound), timed {t['ms']:.4f} ms ({share(t['bound'], t['ms'])}), "
+              f"bound {t['bound']:.4f} ms, block variant timed "
+              f"{t['block_ms']:.4f} ms, plain {t['plain']:.3f} ms, h2d "
+              f"pageable {t['h2d']:.3f} ms, pinned {t['h2d_pinned']:.3f} ms")
+        for name, ms in by_kernel.items():
+            print(f"[time]   {ms:.4f} ms  {name[:100]}")
         del u
     del flush
-    print(f"[time] K1 per diagnosis (all groups): kernel {k_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms, plain {p_ms:.3f} ms, h2d {h_ms:.3f} ms")
+    print(f"[time] K1 per diagnosis (all groups): device "
+          f"{k1_sums['device']:.4f} ms, timed {k1_sums['ms']:.4f} ms, bound "
+          f"{k1_sums['bound']:.4f} ms ({share(k1_sums['bound'], k1_sums['device'])}"
+          f" of bound by device time), block variant timed "
+          f"{k1_sums['block_ms']:.4f} ms, plain {k1_sums['plain']:.3f} ms, "
+          f"h2d pageable {k1_sums['h2d']:.3f} ms, pinned "
+          f"{k1_sums['h2d_pinned']:.3f} ms")
 
     clock.lap("K1 check and time")
 
@@ -946,6 +1054,7 @@ def main() -> int:
     res = svc.diagnose_profiles(profiles)
     wall = time.perf_counter() - t
     launches = K.pattern_summary.launches
+    k1_by_variant = dict(K.pattern_summary.launches_by_variant)
     peak = torch.cuda.max_memory_allocated()
     flagged = {d.abnormality.function: d.abnormality.workers.tolist()
                for d in res.diagnoses}
@@ -957,10 +1066,12 @@ def main() -> int:
           f"{res.timing['summarize_s']:.4f} localize_s "
           f"{res.timing['localize_s']:.4f} wall {wall:.4f} s; rows {rows} "
           f"samples {samples}; peak device memory {peak} bytes; "
-          f"K1 launches {launches} for {len(groups)} groups")
+          f"K1 launches {launches} {k1_by_variant} for {len(groups)} groups")
     print(f"[fleet] flagged {flagged}; plans {plans}")
-    if launches != len(groups) or launches == 0:
-        raise AssertionError("the main path did not launch K1 once per group")
+    if launches != len(groups) or launches == 0 \
+            or k1_by_variant["warp"] != launches:
+        raise AssertionError("the main path did not launch K1's warp variant "
+                             "once per group")
     want = [0, 1, 2, 3]
     if flagged.get(GEMM) != want or flagged.get(ALLGATHER) != want \
             or plans[0] != ("replace_hosts", want):
@@ -1046,13 +1157,19 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/pattern_summary.cu",
         "replaces": "src/repro/kernels/pattern_summary.py:73",
+        "variant": "warp",
         "launches": launches,
+        "launches_by_variant": k1_by_variant,
+        "ptxas": k1_ptxas,
         "count_mismatch_rows": mismatch_rows,
         "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "h2d_ms": h_ms,
-        "bound_ms": b_ms,
+        "ms": k1_sums["ms"],
+        "device_ms": k1_sums["device"],
+        "block_variant_ms": k1_sums["block_ms"],
+        "plain_ms": k1_sums["plain"],
+        "h2d_ms": k1_sums["h2d"],
+        "h2d_pinned_ms": k1_sums["h2d_pinned"],
+        "bound_ms": k1_sums["bound"],
         "bound_by": "bytes",
         "library_ms": None,
     }, {

@@ -3,12 +3,31 @@
 ``pattern_summary(u)`` takes a zero-padded ``(E, n)`` float32 utilization
 matrix and returns ``(E, 3)`` float64 ``[mean, std, count]`` over each row's
 critical execution duration (``repro_torch.summarize.base`` states the
-contract).  On a CUDA tensor it launches the hand-written kernel in
+contract).  On a CUDA tensor it launches the hand-written kernels in
 ``csrc/pattern_summary.cu`` or raises; on a CPU tensor it runs
 ``pattern_summary_reference``, the plain torch version of the same function.
 
-The kernel replaces the JAX reference's Pallas TPU kernel
-``repro/kernels/pattern_summary.py::_kernel``.  Its bound on an H100 is
+Which kernel runs is one fixed rule, ``variant_for(n)``, decided before any
+launch (the source's header note gives the design):
+
+* ``"warp"`` for rows of at most ``WARP_MAX_N`` (2048) samples: one warp per
+  row, 8 rows a block, the row in registers
+  (``lane_samples_for(n)`` samples a lane).  Pass 0 is reductions only and
+  finishes every all-zero or one-run row; a second kernel runs the rows
+  with several runs through the general path.
+* ``"block"`` for longer rows: one block of 512 threads per
+  row on a persistent grid of ``block_grid(E)`` blocks, the row staged in
+  shared memory when it fits (``stage_limit``).  It takes any n.
+
+``pattern_summary(u, variant=...)`` forces one; forcing ``"warp"`` on rows
+longer than ``WARP_MAX_N`` or an unknown name raises ``ValueError``.  A
+failed build or launch raises; nothing retries on the other variant or on
+the plain version.  ``launches`` counts calls that launched K1 (one per
+call, however many device kernels it ran) and ``launches_by_variant`` each
+variant's.
+
+The kernels replace the JAX reference's Pallas TPU kernel
+``repro/kernels/pattern_summary.py::_kernel``.  Their bound on an H100 is
 bytes: ``E*n*4`` read once and ``E*3*8`` written, at 3.35 TB/s
 (``bound_ms``).  No single PyTorch call computes Algorithm 1, so there is no
 library yardstick.
@@ -30,10 +49,14 @@ from repro_torch.kernels import _build
 
 SOURCE = _build.CSRC / "pattern_summary.cu"
 
-#: samples each thread handles per tile, and the block size cap
-#: (kItems and kMaxThreads in the CUDA source)
-ITEMS = 4
-MAX_THREADS = 256
+VARIANTS = ("warp", "block")
+#: samples a lane of the warp variant holds: the counts the source
+#: instantiates (``K1_CASE`` in ``k1_warp``); the last sets the cap
+LANE_SAMPLES = (1, 2, 4, 8, 16, 24, 32, 40, 48, 56, 64)
+WARP_MAX_N = 32 * LANE_SAMPLES[-1]
+#: bytes of the block variant's scratch per sample of a block's row: f64
+#: inclusive and exclusive prefix sums and an int position (kEntryBytes)
+ENTRY_BYTES = 20
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), for ``bound_ms``
 HBM_BYTES_PER_S = 3.35e12
@@ -45,11 +68,27 @@ def bound_ms(E: int, n: int) -> float:
     return (E * n * 4 + E * 3 * 8) / HBM_BYTES_PER_S * 1e3
 
 
-def threads_for(n: int) -> int:
-    """Block size for rows of ``n`` samples: enough warps for one tile to
-    cover the row, at most ``MAX_THREADS``."""
-    warps = -(-n // (32 * ITEMS))
-    return max(32, min(MAX_THREADS, 32 * warps))
+def variant_for(n: int) -> str:
+    """The kernel that runs rows of ``n`` samples: ``"warp"`` up to
+    ``WARP_MAX_N``, else ``"block"``."""
+    return "warp" if n <= WARP_MAX_N else "block"
+
+
+def lane_samples_for(n: int) -> int:
+    """Samples each lane of the warp variant holds for rows of ``n``: the
+    smallest instantiated count that covers ``ceil(n / 32)``."""
+    need = -(-n // 32)
+    for k in LANE_SAMPLES:
+        if k >= need:
+            return k
+    raise ValueError(f"the warp variant takes rows of at most {WARP_MAX_N} "
+                     f"samples, not {n}")
+
+
+def block_grid(E: int, sms: int) -> int:
+    """Blocks of the block variant's persistent grid on a card of ``sms``
+    SMs: two an SM, at most one a row."""
+    return min(E, 2 * sms)
 
 
 def build() -> Path:
@@ -59,26 +98,32 @@ def build() -> Path:
 
 
 class PatternSummary:
-    """The K1 wrapper.  ``launches`` counts kernel launches (plain integer,
-    never incremented on the CPU path)."""
+    """The K1 wrapper.  ``launches`` counts calls that launched K1 and
+    ``launches_by_variant`` those of each variant (plain integers, never
+    incremented on the CPU path)."""
 
     def __init__(self):
-        self.launches = 0
+        self.reset_counts()
         self._lib: Optional[ctypes.CDLL] = None
         self._stage_limit: Dict[int, int] = {}
 
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
     def library(self) -> ctypes.CDLL:
-        """Build (at first use) and load the kernel's shared library."""
+        """Build (at first use) and load the kernels' shared library."""
         if self._lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.k1_pattern_summary.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_double, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
-            lib.k1_pattern_summary.restype = ctypes.c_int
-            lib.k1_stage_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.k1_stage_limit.restype = ctypes.c_int
-            lib.k1_error_string.argtypes = [ctypes.c_int]
+            ll, i, p, d = (ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_double)
+            lib.k1_warp.argtypes = [p, p, ll, i, d, i, p, p]
+            lib.k1_warp.restype = i
+            lib.k1_block.argtypes = [p, p, ll, i, d, i, i, p, p]
+            lib.k1_block.restype = i
+            lib.k1_stage_limit.argtypes = [ctypes.POINTER(i)]
+            lib.k1_stage_limit.restype = i
+            lib.k1_error_string.argtypes = [i]
             lib.k1_error_string.restype = ctypes.c_char_p
             self._lib = lib
         return self._lib
@@ -89,7 +134,8 @@ class PatternSummary:
             raise RuntimeError(f"K1 {what} failed: CUDA error {code} ({msg})")
 
     def stage_limit(self, device: torch.device) -> int:
-        """Longest row, in samples, the kernel stages in shared memory."""
+        """Longest row, in samples, the block variant stages in shared
+        memory."""
         idx = device.index if device.index is not None \
             else torch.cuda.current_device()
         if idx not in self._stage_limit:
@@ -101,11 +147,18 @@ class PatternSummary:
         return self._stage_limit[idx]
 
     def __call__(self, u: torch.Tensor,
-                 stage: Optional[bool] = None) -> torch.Tensor:
-        """``stage`` forces (True) or forbids (False) staging rows in shared
-        memory; None stages every row that fits."""
+                 variant: Optional[str] = None) -> torch.Tensor:
+        """``variant`` forces ``"warp"`` or ``"block"``; None takes
+        ``variant_for(n)``."""
         if u.dim() != 2:
             raise ValueError(f"u must be (E, n), got shape {tuple(u.shape)}")
+        E, n = u.shape
+        chosen = variant_for(n) if variant is None else variant
+        if chosen not in VARIANTS:
+            raise ValueError(f"K1 variants are {VARIANTS}, not {variant!r}")
+        if chosen == "warp" and n > WARP_MAX_N:
+            raise ValueError(f"the warp variant takes rows of at most "
+                             f"{WARP_MAX_N} samples, not {n}")
         if u.device.type == "cpu":
             return pattern_summary_reference(u)
         if u.device.type != "cuda":
@@ -114,21 +167,31 @@ class PatternSummary:
             raise TypeError(f"K1 takes float32, got {u.dtype}")
         if not u.is_contiguous():
             raise ValueError("K1 takes a contiguous (row-major) matrix")
-        E, n = u.shape
-        out = torch.zeros((E, 3), dtype=torch.float64, device=u.device)
         if E == 0 or n == 0:
-            return out
-        fits = n <= self.stage_limit(u.device)
-        if stage and not fits:
-            raise ValueError(f"rows of {n} samples do not fit in shared "
-                             "memory")
+            return torch.zeros((E, 3), dtype=torch.float64, device=u.device)
+        # every row is written by one of the kernels
+        out = torch.empty((E, 3), dtype=torch.float64, device=u.device)
+        lib = self.library()
         with torch.cuda.device(u.device):
-            code = self.library().k1_pattern_summary(
-                u.data_ptr(), out.data_ptr(), E, n, MASS_FRACTION,
-                threads_for(n), int(fits if stage is None else stage),
-                torch.cuda.current_stream(u.device).cuda_stream)
-        self._check(code, f"launch on ({E}, {n})")
+            stream = torch.cuda.current_stream(u.device).cuda_stream
+            if chosen == "warp":
+                work = torch.empty(E + 1, dtype=torch.int32, device=u.device)
+                code = lib.k1_warp(u.data_ptr(), out.data_ptr(), E, n,
+                                   MASS_FRACTION, lane_samples_for(n),
+                                   work.data_ptr(), stream)
+            else:
+                sms = torch.cuda.get_device_properties(
+                    u.device).multi_processor_count
+                grid = block_grid(E, sms)
+                scratch = torch.empty(grid * n * ENTRY_BYTES,
+                                      dtype=torch.uint8, device=u.device)
+                code = lib.k1_block(u.data_ptr(), out.data_ptr(), E, n,
+                                    MASS_FRACTION,
+                                    int(n <= self.stage_limit(u.device)),
+                                    grid, scratch.data_ptr(), stream)
+        self._check(code, f"{chosen} launch on ({E}, {n})")
         self.launches += 1
+        self.launches_by_variant[chosen] += 1
         return out
 
 

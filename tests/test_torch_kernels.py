@@ -13,9 +13,12 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS, VARIANTS,
                                                  flash_attention,
                                                  flash_attention_reference,
                                                  tma_strides, variant_for)
-from repro_torch.kernels.pattern_summary import (bound_ms, pattern_summary,
-                                                 pattern_summary_reference,
-                                                 threads_for)
+from repro_torch.kernels.pattern_summary import VARIANTS as K1_VARIANTS
+from repro_torch.kernels.pattern_summary import (WARP_MAX_N, block_grid,
+                                                 bound_ms, lane_samples_for,
+                                                 pattern_summary,
+                                                 pattern_summary_reference)
+from repro_torch.kernels.pattern_summary import variant_for as k1_variant_for
 from repro_torch.configs.registry import ARCHS, reduced
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan import VARIANTS as K3_VARIANTS
@@ -60,13 +63,48 @@ def test_wrapper_on_cpu_tensor_runs_plain_version_without_launch():
 
 
 def test_launch_geometry_and_bound():
-    assert threads_for(1) == 32
-    assert threads_for(121) == 32
-    assert threads_for(211) == 64
-    assert threads_for(1101) == 256 and threads_for(200000) == 256
+    # warp variant: ceil(n / 32) samples a lane, rounded up to an
+    # instantiated count; the fleet's groups at 121, 211 and 1101
+    assert lane_samples_for(1) == 1 and lane_samples_for(32) == 1
+    assert lane_samples_for(33) == 2
+    assert lane_samples_for(121) == 4
+    assert lane_samples_for(211) == 8
+    assert lane_samples_for(1101) == 40
+    assert lane_samples_for(2048) == 64 and WARP_MAX_N == 2048
+    with pytest.raises(ValueError):
+        lane_samples_for(2049)
+    # block variant: a persistent grid of two blocks an SM, one a row at most
+    assert block_grid(3, 132) == 3 and block_grid(84384, 132) == 264
     # bytes: E*n*4 read + E*3*8 written at 3.35 TB/s
     assert bound_ms(84384, 1101) == pytest.approx(
         (84384 * 1101 * 4 + 84384 * 24) / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("n,want", [
+    (1, "warp"), (121, "warp"), (211, "warp"), (1101, "warp"),
+    (2048, "warp"), (2049, "block"), (40000, "block"), (200000, "block")])
+def test_k1_variant_rule(n, want):
+    """Rows up to 2048 samples (every fleet group) take the warp variant,
+    longer rows the block variant."""
+    assert k1_variant_for(n) == want and want in K1_VARIANTS
+
+
+def test_k1_rejects_unknown_and_impossible_variants_without_launch():
+    """On any device: an unknown name, and the warp variant forced on rows
+    past its cap, raise before anything runs; the block variant takes any
+    row (on the CPU, the plain version)."""
+    before = (pattern_summary.launches,
+              dict(pattern_summary.launches_by_variant))
+    with pytest.raises(ValueError, match="variants"):
+        pattern_summary(torch.zeros((2, 5)), variant="simt")
+    with pytest.raises(ValueError, match="at most 2048"):
+        pattern_summary(torch.zeros((2, WARP_MAX_N + 1)), variant="warp")
+    u = torch.from_numpy(case(5, 24, 512))
+    for variant in K1_VARIANTS:
+        assert torch.equal(pattern_summary(u, variant=variant),
+                           pattern_summary_reference(u))
+    assert (pattern_summary.launches,
+            pattern_summary.launches_by_variant) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -197,16 +235,26 @@ def _cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("stage", [None, False])
-def test_k1_matches_plain_version_on_card(stage):
+@pytest.mark.parametrize("variant", [None, "warp", "block"])
+def test_k1_matches_plain_version_on_card(variant):
+    """Every input under the rule (None) and each variant that takes it;
+    one-run rows at every offset (the fleet's rows) beside the random,
+    edge, long and sparse ones."""
     _cuda()
-    for u in matrices() + [long_row(200000, seed=5)]:
+    one_run = np.zeros((64, 1101), np.float32)
+    for r in range(64):
+        a = 17 * r
+        one_run[r, a:a + 1 + (r * 131) % (1101 - a)] = 0.25 + r / 128
+    for u in matrices() + [long_row(200000, seed=5), one_run]:
+        ran = k1_variant_for(u.shape[1]) if variant is None else variant
+        if ran == "warp" and u.shape[1] > WARP_MAX_N:
+            continue
         t = torch.from_numpy(u).cuda()
         ref = pattern_summary_reference(t)
-        before = pattern_summary.launches
-        out = pattern_summary(t, stage=stage)
+        before = pattern_summary.launches_by_variant[ran]
+        out = pattern_summary(t, variant=variant)
         torch.cuda.synchronize()
-        assert pattern_summary.launches == before + 1
+        assert pattern_summary.launches_by_variant[ran] == before + 1
         assert torch.equal(out[:, 2], ref[:, 2])
         assert float((out[:, :2] - ref[:, :2]).abs().max()) <= ATOL
 
@@ -220,9 +268,35 @@ def test_k1_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         pattern_summary(u.t())
     with pytest.raises(ValueError):
-        pattern_summary(torch.zeros((1, 300000), device="cuda"), stage=True)
+        pattern_summary(torch.zeros((1, 3000), device="cuda"), variant="warp")
+    with pytest.raises(ValueError):
+        pattern_summary(u, variant="tile")
     empty = pattern_summary(torch.zeros((0, 7), device="cuda"))
     assert empty.shape == (0, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["warp", "block"])
+def test_k1_failed_launch_raises_and_counts_nothing(variant, monkeypatch):
+    """A launch that returns a CUDA error raises; nothing falls back to the
+    other variant or to the plain version."""
+    _cuda()
+    lib = pattern_summary.library()
+
+    class Failing:
+        k1_stage_limit = lib.k1_stage_limit
+        k1_error_string = lib.k1_error_string
+
+        def k1_warp(self, *args):
+            return 1                    # cudaErrorInvalidValue
+
+        k1_block = k1_warp
+
+    monkeypatch.setattr(pattern_summary, "_lib", Failing())
+    before = dict(pattern_summary.launches_by_variant)
+    with pytest.raises(RuntimeError, match=f"{variant} launch"):
+        pattern_summary(torch.ones((4, 64), device="cuda"), variant=variant)
+    assert pattern_summary.launches_by_variant == before
 
 
 #: (B, Sq, Skv, H, KV, D, options): the shapes of tests/test_kernels.py, the

@@ -4,7 +4,9 @@ The port's host backends (``python``, ``numpy``) are copies of the
 reference's and must agree bitwise.  Its ``torch`` backend, the plain torch
 version of kernel K1, must give the python oracle's counts exactly and its
 moments to 1e-5 (float64 prefix sums in another order than the oracle's).
-The reference's Pallas kernel runs here in interpret mode.
+The reference's Pallas kernel runs here in interpret mode.  The parity
+cases hold the plain version to the oracle and to the Pallas kernel within
+1e-7 with the count divided by n (both give float32 moments and fractions).
 """
 import numpy as np
 import pytest
@@ -13,7 +15,9 @@ from repro.core.events import FunctionEvent as RefEvent
 from repro.core.events import Kind as RefKind
 from repro.core.events import SampleStream as RefStream
 from repro.core.events import WorkerProfile as RefProfile
+from repro.core.patterns import critical_duration
 from repro.kernels.pattern_summary import pattern_summary as pallas_summary
+from repro.kernels.ref import pattern_summary_oracle
 from repro.summarize.backends import NumpyBackend as RefNumpy
 from repro.summarize.backends import PythonBackend as RefPython
 from repro.summarize.engine import summarize_profile as ref_summarize_profile
@@ -21,12 +25,23 @@ from repro.summarize.engine import summarize_profile as ref_summarize_profile
 from repro_torch.core.events import profile_from_reference
 from repro_torch.summarize import ENV_BACKEND, get_backend, summarize_profile
 
+from _prop import given, settings, st
 from _torch_inputs import (RANDOM_CASES, case, edge_rows, long_row, matrices,
                            sparse_rows)
 # autouse fixture: torch on one CPU thread
 from _torch_inputs import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
+PARITY_ATOL = 1e-7   # float32 outputs of the oracle and the Pallas kernel
+
+#: (E, n, density) of the parity cases: a single sample to rows past the
+#: warp variant's 2048-sample cap, sparse to dense; row 0 is all zero
+PARITY_CASES = [(3, 1, 0.5), (5, 2, 0.5), (4, 33, 0.3), (8, 97, 0.02),
+                (8, 256, 0.9), (6, 1101, 0.5), (8, 2049, 0.1),
+                (8, 4096, 0.02), (8, 4096, 0.9)]
+#: row lengths of the one-run cases: the fleet's groups (121, 211, 1101)
+#: and lengths on either side of a warp's 32 lanes
+ONE_RUN_LENGTHS = [1, 31, 33, 121, 211, 1101]
 
 
 def _torch_stats(u):
@@ -81,6 +96,71 @@ def test_torch_backend_matches_pallas_interpret():
     out = _torch_stats(u)
     np.testing.assert_allclose(out[:, :2], pal[:, :2], rtol=0, atol=ATOL)
     np.testing.assert_array_equal(np.rint(pal[:, 2] * u.shape[1]), out[:, 2])
+
+
+# -- parity: the plain version, the oracle and the Pallas kernel ---------------
+
+def parity_case(E, n, density, seed=1):
+    """Positive samples at ``density``, uniform in [0.05, 1); row 0 all
+    zero."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random((E, n)) < density
+    u = (keep * rng.uniform(0.05, 1.0, (E, n))).astype(np.float32)
+    u[0] = 0.0
+    return u
+
+
+def one_run_rows(n, seed=2):
+    """Rows whose positive samples form one run (the fleet's rows), the run
+    starting at every offset (every ``n // 48``-th past 48) with lengths
+    that vary from row to row."""
+    rng = np.random.default_rng(seed)
+    starts = range(0, n, max(1, n // 48))
+    u = np.zeros((len(starts), n), np.float32)
+    for r, a in enumerate(starts):
+        b = a + 1 + (a * 7919) % (n - a)
+        u[r, a:b] = rng.uniform(0.05, 1.0, b - a)
+    return u
+
+
+def _assert_parity(u):
+    n = u.shape[1]
+    out = _torch_stats(u)
+    got = np.stack([out[:, 0], out[:, 1], out[:, 2] / n], axis=1)
+    oracle = pattern_summary_oracle(u).astype(np.float64)
+    pallas = np.asarray(pallas_summary(u, interpret=True), np.float64)
+    np.testing.assert_allclose(got, oracle, rtol=0, atol=PARITY_ATOL)
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=PARITY_ATOL)
+
+
+@pytest.mark.parametrize("E,n,density", PARITY_CASES)
+def test_plain_version_parity_random_density(E, n, density):
+    _assert_parity(parity_case(E, n, density))
+
+
+@pytest.mark.parametrize("n", ONE_RUN_LENGTHS)
+def test_plain_version_parity_one_run_rows(n):
+    _assert_parity(one_run_rows(n))
+
+
+@settings(max_examples=150, deadline=None)
+@given(st.data())
+def test_one_run_row_region_is_first_to_last_positive(data):
+    """K1's pass-0 shortcut: a row whose positive-sample count is last -
+    first + 1 has the region [first, last + 1) in the oracle, and the plain
+    version counts it."""
+    n = data.draw(st.integers(1, 400))
+    a = data.draw(st.integers(0, n - 1))
+    b = data.draw(st.integers(a + 1, n))
+    vals = data.draw(st.lists(st.floats(2.0 ** -10, 1.0, width=32),
+                              min_size=b - a, max_size=b - a))
+    row = np.zeros(n, np.float32)
+    row[a:b] = vals
+    pos = np.flatnonzero(row > 0)
+    first, last = int(pos[0]), int(pos[-1])
+    assert len(pos) == last - first + 1
+    assert critical_duration(row) == (first, last + 1)
+    assert _torch_stats(row[None])[0, 2] == last + 1 - first
 
 
 # -- engine: one worker's patterns --------------------------------------------
