@@ -48,7 +48,20 @@ these phases, each checked:
 7. the full mamba2-2.7b trainer (64 layers, full width, bf16 with f32
    ``A_log``/``D``/``dt_bias`` and fp32 AdamW state) for 5 steps of batch
    1 x 2048 tokens: 64 K3 launches a step, all of the wgmma variant, finite
-   losses and grad norms.
+   losses and grad norms;
+8. the online loop (detect, summarize with K1 every window, localize, plan,
+   mitigate): ``[online catalog]``, all 22 scenarios of
+   ``online/catalog.py`` through ``run_scenario(sc)`` on the card, each
+   equal to its run on the host ``numpy`` backend window by window, with
+   the rows of several runs that reach ``k1_warp_general`` held against
+   K1's plain version; ``[online fleet]``, one closed-loop scenario at the
+   paper's window (256 workers + 16 standbys, 20 s windows at 1 kHz, 10 kHz
+   when escalated) whose ``GpuThrottle`` resolves by ``replace_hosts``,
+   per window ``summarize_s``, ``localize_s``, rows by K1 path and K1's
+   device time; ``[online rollback]``, 2 real trainers at gemma2-2b's full
+   width cut to 2 layers under ``ParamCorruption``, restored from a real
+   checkpoint (``ROLLBACK_TO_CHECKPOINT``) bit for bit; every tick's K1
+   launches are of the warp variant.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -62,6 +75,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -217,16 +231,22 @@ def compare(K, u_np: np.ndarray, variant: str):
     return mism, err
 
 
-def row_paths(u: np.ndarray) -> dict:
-    """How many rows of ``u`` each path of K1 finishes: all-zero rows and
-    one-run rows in pass 0 (positive samples count == last - first + 1),
-    the rest in the general path."""
+def path_masks(u: np.ndarray) -> tuple:
+    """Masks of the rows of ``u`` K1 finishes in pass 0: all-zero rows and
+    one-run rows (positive samples count == last - first + 1).  The rest
+    take the general path (``k1_warp_general`` in the warp variant)."""
     pos = u > 0
     count = pos.sum(axis=1)
     first = pos.argmax(axis=1)
     last = u.shape[1] - 1 - pos[:, ::-1].argmax(axis=1)
     zero = ~(u.sum(axis=1, dtype=np.float64) > 0)
     one = ~zero & (count == last - first + 1)
+    return zero, one
+
+
+def row_paths(u: np.ndarray) -> dict:
+    """How many rows of ``u`` each path of K1 finishes."""
+    zero, one = path_masks(u)
     return {"all_zero": int(zero.sum()), "one_run": int(one.sum()),
             "general": int((~zero & ~one).sum())}
 
@@ -858,6 +878,368 @@ def trainer_fleet_phase(K, K2, K3, ARCHS, TrainerWorkload, DataloaderBurn,
     return out
 
 
+# -- the online loop: catalog, paper-window fleet, real rollback ---------------
+
+ONLINE_FLEET_W = 256         # the paper's window over 256 workers ...
+ONLINE_FLEET_STANDBY = 16    # ... plus a standby pool
+ONLINE_FLEET_WINDOWS = 8
+ONLINE_FLEET_FAULTY = (3, 129)
+ROLLBACK_WINDOWS = 8
+#: full-width trainers in the rollback: the restore holds the fleet's state
+#: on the card twice (live and restored), 2 x 10.4 GB each
+ROLLBACK_WORKERS = 2
+
+
+class ObservedK1:
+    """The ``cuda`` summarize backend, observed: each call goes to a
+    ``CudaBackend`` as the path's does, and the observer adds the call's
+    rows by K1 path (``path_masks``), K1's result on the rows with several
+    runs (the rows ``k1_warp_general`` takes) held against the plain
+    version on the card, and K1's device time on the same input: CUDA
+    events around a second launch, queued behind a spin kernel so that the
+    GPU runs the events and K1's memset and two kernels back to back and no
+    host time falls between them (per-tick ``torch.profiler`` traces lost
+    K1 kernels on the card)."""
+
+    name = "cuda"
+    SPIN_CYCLES = 1_000_000      # ~0.5 ms of GPU spin: longer than the enqueue
+
+    def __init__(self, K):
+        from repro_torch.summarize.backends import CudaBackend
+        self.K, self.backend = K, CudaBackend()
+        self.rows = dict.fromkeys(("all_zero", "one_run", "general"), 0)
+        self.general_mismatch, self.general_err = 0, 0.0
+        self.k1_ms = 0.0
+
+    def batch_stats(self, u: np.ndarray) -> np.ndarray:
+        out = self.backend.batch_stats(u)
+        t = torch.from_numpy(np.ascontiguousarray(u, np.float32)).cuda()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(self.SPIN_CYCLES)
+        start.record()
+        self.K.pattern_summary(t)
+        end.record()
+        end.synchronize()
+        self.k1_ms += start.elapsed_time(end)
+        zero, one = path_masks(u)
+        general = ~zero & ~one
+        for key, m in (("all_zero", zero), ("one_run", one),
+                       ("general", general)):
+            self.rows[key] += int(m.sum())
+        if general.any():
+            ref = self.K.pattern_summary_reference(t[torch.from_numpy(
+                general).cuda()]).cpu().numpy()
+            got = out[general]
+            self.general_mismatch += int((got[:, 2] != ref[:, 2]).sum())
+            self.general_err = max(self.general_err, float(
+                np.abs(got[:, :2] - ref[:, :2]).max()))
+        return out
+
+
+class TickWatch:
+    """While active, each ``OnlinePipeline.window_tick`` records K1's
+    launches by variant during the tick, its ``summarize_s`` and
+    ``localize_s``, and what ``observer`` (an ``ObservedK1``) saw in it:
+    rows by path and K1's device time."""
+
+    def __init__(self, K, observer=None):
+        self.K, self.observer = K, observer
+        self.ticks: list = []
+
+    def __enter__(self):
+        from repro_torch.online.pipeline import OnlinePipeline
+        self._cls, self._orig = OnlinePipeline, OnlinePipeline.window_tick
+        watch = self
+
+        def tick(pipe, *args, **kwargs):
+            return watch._tick(pipe, args, kwargs)
+        OnlinePipeline.window_tick = tick
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.window_tick = self._orig
+
+    def _tick(self, pipe, args, kwargs):
+        ps, obs = self.K.pattern_summary, self.observer
+        before = dict(ps.launches_by_variant)
+        rows, ms = (dict(obs.rows), obs.k1_ms) if obs else (None, None)
+        report = self._orig(pipe, *args, **kwargs)
+        self.ticks.append(dict(
+            launches={v: ps.launches_by_variant[v] - before[v]
+                      for v in before},
+            rows=(None if obs is None else
+                  {k: obs.rows[k] - rows[k] for k in rows}),
+            k1_ms=None if obs is None else obs.k1_ms - ms,
+            summarize_s=report.summarize_s, localize_s=report.localize_s,
+            states=[(i.id, i.state) for i in pipe.incidents.incidents]))
+        return report
+
+    def assert_warp_every_tick(self, what: str) -> None:
+        for i, t in enumerate(self.ticks):
+            if t["launches"]["warp"] < 1 or t["launches"]["block"]:
+                raise AssertionError(f"{what} window {i}: K1 launches "
+                                     f"{t['launches']}, expected warp only")
+
+
+def online_trace(runner, res) -> dict:
+    """What the online loop decided, window by window: diagnosed functions
+    and workers, escalated sets, executed plans; every incident's life."""
+    return {
+        "windows": [([(d.abnormality.function,
+                       d.abnormality.workers.tolist())
+                      for d in r.diagnoses], list(r.escalated),
+                     [str(m) for m in r.mitigations]) for r in res.reports],
+        "incidents": [(i.id, i.function, i.channel, i.state, i.escalations,
+                       list(i.workers), list(i.history),
+                       [(t, p.action.value, list(p.workers))
+                        for t, p in i.applied]) for i in res.incidents],
+        "timeline": res.timeline(),
+    }
+
+
+def close_recovery(runner) -> None:
+    """Remove the run's temporary checkpoint directory."""
+    if runner.engine is not None and runner.engine.recovery is not None:
+        runner.engine.recovery.close()
+
+
+def online_catalog_phase(K, K2, K3) -> dict:
+    """All 22 catalog scenarios through ``run_scenario(sc)`` on the card
+    (counts reset before each), again with the backend observed (rows by
+    K1 path, the general path's rows against the plain version), and on the
+    host ``numpy`` backend: the same run window by window and the same
+    ``evaluate`` rows, every row ``ok``."""
+    from repro_torch.online.catalog import SCENARIOS, evaluate, run_scenario
+    observer = ObservedK1(K)
+    totals = dict.fromkeys(K.VARIANTS, 0)
+    general_rows = 0
+    for sc in SCENARIOS:
+        reset_counts(K, K2, K3)
+        with TickWatch(K) as watch:
+            runner, res = run_scenario(sc)
+        by_variant = dict(K.pattern_summary.launches_by_variant)
+        if runner.pipeline.service.summarize_backend.name != "cuda":
+            raise AssertionError("run_scenario's default backend is not cuda")
+        watch.assert_warp_every_tick(sc.name)
+        rows = evaluate(sc, runner, res)
+        seen = dict(observer.rows)
+        with TickWatch(K, observer) as owatch:
+            orunner, ores = run_scenario(sc, summarize_backend=observer)
+        host, host_res = run_scenario(sc, summarize_backend="numpy")
+        trace = online_trace(runner, res)
+        if trace != online_trace(host, host_res) \
+                or trace != online_trace(orunner, ores) \
+                or rows != evaluate(sc, host, host_res) \
+                or not all(r["ok"] for r in rows):
+            raise AssertionError(f"{sc.name}: the card's run differs from "
+                                 f"the numpy run or misses its expectations "
+                                 f"{rows}")
+        for r in (runner, orunner, host):
+            close_recovery(r)
+        general = [t["rows"]["general"] for t in owatch.ticks]
+        general_rows += sum(general)
+        for v in totals:
+            totals[v] += by_variant[v]
+        first = ", ".join(f"{r['function']} -> {r['first_action']} "
+                          f"(wtr {r['wtr']}, escalations "
+                          f"{r['escalations']})" for r in rows)
+        print(f"[online catalog] {sc.name} ({sc.fault_class}): {first}; "
+              f"{sc.n_windows} windows, K1 launches {by_variant}; rows by "
+              f"path {({k: observer.rows[k] - seen[k] for k in seen})}, "
+              f"general rows by window {general}")
+    if observer.general_mismatch or observer.general_err > ATOL:
+        raise AssertionError(f"k1_warp_general disagrees with the plain "
+                             f"version: {observer.general_mismatch} counts, "
+                             f"err {observer.general_err}")
+    print(f"[online catalog] 22 scenarios == numpy, every row ok; K1 "
+          f"launches {totals}; rows that reached k1_warp_general "
+          f"{general_rows}, against the plain version: "
+          f"{observer.general_mismatch} count mismatches, max |mean/std "
+          f"err| {observer.general_err:.3g}")
+    return dict(launches=totals, general_rows=general_rows,
+                general_err=observer.general_err)
+
+
+def online_fleet_phase(K, K2, K3) -> dict:
+    """One closed-loop scenario at the paper's window: W=256 + 16 standbys,
+    20 s windows at 1 kHz base / 10 kHz escalated (at most 16 escalated),
+    ``GpuThrottle`` on two workers from window 2, never removed.  Run on
+    the card (counts reset before it), again observed and profiled per
+    tick, and on the host ``numpy`` backend."""
+    from repro_torch.core import faults as F
+    from repro_torch.core.simulation import GEMM, SimConfig
+    from repro_torch.online import (EscalationPolicy, ScenarioRunner,
+                                    ScheduledFault)
+
+    def runner(backend=None):
+        return ScenarioRunner(
+            SimConfig(n_workers=ONLINE_FLEET_W, window_s=20.0,
+                      rate_hz=10000.0, seed=7,
+                      n_standby=ONLINE_FLEET_STANDBY),
+            [ScheduledFault(F.GpuThrottle(workers=ONLINE_FLEET_FAULTY), 2,
+                            ONLINE_FLEET_WINDOWS)],
+            n_windows=ONLINE_FLEET_WINDOWS,
+            escalation=EscalationPolicy(
+                n_workers=ONLINE_FLEET_W + ONLINE_FLEET_STANDBY,
+                base_rate_hz=1000.0, full_rate_hz=10000.0, max_escalated=16),
+            mitigation=True, summarize_backend=backend)
+
+    reset_counts(K, K2, K3)
+    main = runner()
+    with TickWatch(K) as watch:
+        res = main.run()
+    by_variant = dict(K.pattern_summary.launches_by_variant)
+    watch.assert_warp_every_tick("online fleet")
+    observer = ObservedK1(K)
+    observed = runner(observer)
+    with TickWatch(K, observer) as owatch:
+        ores = observed.run()
+    host = runner("numpy")
+    host_res = host.run()
+    trace = online_trace(main, res)
+    for i, (t, o) in enumerate(zip(watch.ticks, owatch.ticks)):
+        print(f"[online fleet] window {i}: summarize_s "
+              f"{t['summarize_s']:.4f} localize_s {t['localize_s']:.4f}; K1 "
+              f"launches {t['launches']}; rows by path {o['rows']}; K1 "
+              f"device {o['k1_ms']:.4f} ms (observed run); incidents "
+              f"{t['states']}")
+    gemm = [i for i in res.incidents if i.function == GEMM]
+    mine = [m for m in main.engine.log if gemm and m.incident_id == gemm[0].id]
+    if trace != online_trace(host, host_res) \
+            or trace != online_trace(observed, ores) \
+            or len(gemm) != 1 or gemm[0].state != "resolved" \
+            or gemm[0].escalations or not mine \
+            or mine[0].plan.action.value != "replace_hosts":
+        raise AssertionError("the paper-window fleet did not resolve by "
+                             "replace_hosts as its numpy run does")
+    if observer.general_mismatch or observer.general_err > ATOL:
+        raise AssertionError("k1_warp_general disagrees with the plain "
+                             "version in the online fleet")
+    for r in (main, observed, host):
+        close_recovery(r)
+    general = sum(o["rows"]["general"] for o in owatch.ticks)
+    print(f"[online fleet] W={ONLINE_FLEET_W}+{ONLINE_FLEET_STANDBY}, 20 s "
+          f"windows, 1/10 kHz: incident #{gemm[0].id} {GEMM} on "
+          f"{list(gemm[0].workers_seen)} resolved by "
+          f"{mine[0].plan.action.value} {mine[0].dropped} -> "
+          f"{mine[0].replacements} in window {mine[0].window}, 0 "
+          f"escalations; == numpy run; K1 launches {by_variant}; general "
+          f"rows {general}")
+    return dict(launches=by_variant, general_rows=general)
+
+
+def host_tree(tree):
+    """``tree`` with every tensor copied to the host."""
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_tree(v) for v in tree)
+    return tree.detach().cpu().clone()
+
+
+def online_rollback_phase(K, K2, K3, ARCHS) -> dict:
+    """``ROLLBACK_WORKERS`` of the port's real trainers (``TrainerWorkload``)
+    at gemma2-2b's full width cut to 2 layers on the card, under
+    ``ParamCorruption(workers=(1,), nan=True)``, with the loop closed
+    through ``RecoveryManager.for_workload`` (a save at window 0 only): the
+    numerics incident must resolve by ``ROLLBACK_TO_CHECKPOINT`` with 0
+    escalations, the verified rollback install what the checkpoint holds,
+    the checkpoint hold the state taken at window 0 bit for bit (read back
+    onto the host copy of that state), and K2 run in the training steps.
+    The restore puts a second copy of the fleet's state on the card before
+    it installs it, so the fleet's state must fit the card twice: 4 workers
+    (10.4 GB each) do not.  Returns K1's launches by variant."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.ckpt.recovery import RecoveryManager
+    from repro_torch.core.mitigation import Action
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.online import ScenarioRunner, ScheduledFault
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.loop import TrainConfig
+    from repro_torch.train.workload import (ParamCorruption, TrainerWorkload,
+                                            default_trainer_detector_cfg)
+
+    cfg = ARCHS["gemma2-2b"].with_overrides(num_layers=2)
+    setup = (cfg, DataConfig(batch=1, seq_len=TRAIN_SEQ), OptConfig(),
+             TrainConfig(perftracker=False))
+    wl = TrainerWorkload(n_workers=ROLLBACK_WORKERS, setup=setup,
+                         device="cuda")
+    wl._ensure_workers()
+    state_bytes = torch.cuda.memory_allocated()
+    # the state the window-0 save will take: nothing trains in between
+    step0, tree0 = wl.snapshot_state()
+    snapshot = host_tree(tree0)
+    del tree0
+    rec = RecoveryManager.for_workload(wl, save_every=ROLLBACK_WINDOWS)
+    disk = shutil.disk_usage(rec.ckpt.dir)
+    host_ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    r = ScenarioRunner(
+        None, [ScheduledFault(ParamCorruption(workers=(1,), nan=True), 2,
+                              ROLLBACK_WINDOWS,
+                              cures=(Action.ROLLBACK_TO_CHECKPOINT,))],
+        n_windows=ROLLBACK_WINDOWS, iters_per_window=FLEET_ITERS,
+        detector_cfg=default_trainer_detector_cfg(FLEET_ITERS), workload=wl,
+        mitigation=True, recovery=rec)
+    reset_counts(K, K2, K3)
+    t = time.perf_counter()
+    with TickWatch(K) as watch:
+        res = r.run()
+    run_s = time.perf_counter() - t
+    k2 = K2.flash_attention.launches
+    k2_by_variant = dict(K2.flash_attention.launches_by_variant)
+    k1 = dict(K.pattern_summary.launches_by_variant)
+    watch.assert_warp_every_tick("online rollback")
+    inc = next((i for i in res.incidents
+                if i.channel == "numerics" and i.applied), None)
+    m = next((m for m in r.engine.log
+              if m.plan.action is Action.ROLLBACK_TO_CHECKPOINT), None)
+    if inc is None or m is None or m.restored_step != step0:
+        raise AssertionError(f"no rollback to step {step0} restored the "
+                             f"corrupted trainers: {res.timeline()}")
+    ck_bytes = sum(f.stat().st_size
+                   for f in (rec.ckpt.dir / f"step_{step0}").iterdir())
+    finite = all(torch.isfinite(t).all() for tw in wl.workers
+                 for t in _flatten(tw.params).values())
+    n_params = sum(t.numel() for t in _flatten(wl.workers[0].params).values())
+    wl.close()
+    # the checkpoint read back onto the host copy of the window-0 state
+    on_disk = _flatten(rec.ckpt.restore(step0, snapshot)[0])
+    flat = _flatten(snapshot)
+    bitwise = list(on_disk) == list(flat) and all(
+        a.dtype == on_disk[k].dtype and torch.equal(
+            a.reshape(-1).view(torch.uint8),
+            on_disk[k].reshape(-1).view(torch.uint8))
+        for k, a in flat.items())
+    del on_disk, flat, snapshot
+    print(f"[online rollback] {ROLLBACK_WORKERS} workers x {cfg.name} at "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {n_params} parameters a worker, batch 1 x "
+          f"{TRAIN_SEQ}; state on the card {state_bytes} bytes; "
+          f"checkpoint directory's disk {disk.free} of {disk.total} bytes "
+          f"free, host memory {host_ram} bytes; {ROLLBACK_WINDOWS} windows "
+          f"x {FLEET_ITERS} steps in {run_s:.2f} s: incident "
+          f"{(inc.function, inc.state, inc.escalations)} by "
+          f"{[p.action.value for _, p in inc.applied]}; checkpoint step "
+          f"{step0}: {ck_bytes} bytes, save {rec.ckpt.last_save_s:.4f} s "
+          f"(write thread), restore {m.restore_s:.4f} s, lost steps "
+          f"{m.lost_steps}; rollback verified {m.rollback_verified}, "
+          f"checkpoint == window-0 state bit for bit: {bitwise}; K2 launches "
+          f"{k2} {k2_by_variant}; K1 launches {k1}")
+    ok = (inc.state == "resolved" and not inc.escalations
+          and inc.applied[0][1].action is Action.ROLLBACK_TO_CHECKPOINT
+          and m.rollback_verified and not m.rollback_failed
+          and m.lost_steps > 0 and bitwise and finite and k2 > 0
+          and k2_by_variant["wgmma"] == k2)
+    rec.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the corrupted trainers were not restored by a "
+                             "verified rollback")
+    return k1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1150,7 +1532,15 @@ def main() -> int:
                              "wgmma")
     clock.lap("mamba2 trainer")
 
-    # -- 10. kernels line, card, contract line --------------------------------
+    # -- 10. the online loop: catalog, paper-window fleet, real rollback ------
+    online_cat = online_catalog_phase(K, K2, K3)
+    clock.lap("online catalog")
+    online_fleet = online_fleet_phase(K, K2, K3)
+    clock.lap("online fleet")
+    rollback = online_rollback_phase(K, K2, K3, ARCHS)   # K1 by variant
+    clock.lap("online rollback")
+
+    # -- 11. kernels line, card, contract line --------------------------------
     k2_main = k2_times[(TRAIN_SEQ, "global")]
     print(json.dumps({"kernels": [{
         "name": "pattern_summary",
@@ -1172,6 +1562,13 @@ def main() -> int:
         "bound_ms": k1_sums["bound"],
         "bound_by": "bytes",
         "library_ms": None,
+        "online_launches_by_variant": {
+            "catalog": online_cat["launches"],
+            "fleet": online_fleet["launches"],
+            "rollback": rollback},
+        "online_general_rows": {"catalog": online_cat["general_rows"],
+                                "fleet": online_fleet["general_rows"]},
+        "online_general_max_abs_err": online_cat["general_err"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -102,6 +102,42 @@ def _event_times(winner: np.ndarray, widths: np.ndarray) -> np.ndarray:
                            np.arange(W * E) * S).reshape(W, E)
 
 
+def critical_intervals(events: List[FunctionEvent],
+                       window: Tuple[float, float]
+                       ) -> Dict[int, List[Tuple[float, float]]]:
+    """Returns, per event index, the sub-intervals on the critical path."""
+    t0, t1 = window
+    if not events or t1 - t0 <= 0:
+        return {}
+    starts, ends, kinds, depth, eligible = _event_arrays(events, window)
+    bounds = _compact_bounds(_bounds(starts, ends, t0, t1)[None],
+                             np.array([t1]))[0]
+    seg_lo, seg_hi = bounds[:-1], bounds[1:]
+    winner = _winner_mask(starts[None], ends[None], kinds[None],
+                          depth[None], eligible[None],
+                          seg_lo[None], seg_hi[None])[0]
+    winner &= (seg_hi - seg_lo)[None, :] > 0
+
+    # runs of winner segments per event -> (lo, hi) intervals
+    E, S = winner.shape
+    edged = np.zeros((E, S + 2), np.int8)
+    edged[:, 1:-1] = winner
+    trans = np.diff(edged, axis=1)
+    ei, si = np.nonzero(trans == 1)                  # run starts (row-major)
+    si_end = np.nonzero(trans == -1)[1]              # paired run ends
+    merged: Dict[int, List[Tuple[float, float]]] = {}
+    for k in range(len(ei)):
+        i = int(ei[k])
+        lo, hi = float(bounds[si[k]]), float(bounds[si_end[k]])
+        ivs = merged.setdefault(i, [])
+        # runs arrive left-to-right; zero-width segments may split a run
+        if ivs and lo <= ivs[-1][1] + _EPS:
+            ivs[-1] = (ivs[-1][0], max(ivs[-1][1], hi))
+        else:
+            ivs.append((lo, hi))
+    return merged
+
+
 def critical_time_by_function(events: List[FunctionEvent],
                               window: Tuple[float, float]) -> Dict[str, float]:
     """Per-function critical-path seconds (the beta numerator of Eq. 2-3)."""

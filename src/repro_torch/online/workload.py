@@ -7,9 +7,8 @@ consumes ``(anchors, profiles, membership, clock)`` per window.  This module
 names that contract.  Two implementations exist:
 
   * ``SimWorkload`` wraps the historical ``FleetSimulator`` path
-    byte-for-byte (the reference's ``ScenarioRunner`` builds one when it is
-    given no workload; the runner is not ported yet, ROADMAP Queue 1
-    item 6);
+    byte-for-byte (``repro_torch.online.scenario.ScenarioRunner`` builds
+    one when it is given no workload);
   * ``TrainerWorkload`` (``repro_torch.train.workload``) drives REAL
     ``Trainer`` instances with the ``Tracer`` wired into every phase of an
     actual train step — anchors are measured iteration durations, profiles are

@@ -4,17 +4,19 @@
 ``train_iteration`` is the fully-instrumented single step the
 ``TrainerWorkload`` (``repro_torch.train.workload``) drives: every phase of
 a real step — ``dataloader.next`` / ``train.step`` (forward + backward,
-ended by a device synchronize on the gradients) / ``optimizer.step`` — is
-recorded as a Tracer event.
+ended by a device synchronize on the gradients) / ``optimizer.step`` /
+``ckpt.save`` — is recorded as a Tracer event.  With ``ckpt_dir`` the
+trainer saves every ``ckpt_every`` steps (async), resumes from the latest
+valid step, and a ``ROLLBACK_TO_CHECKPOINT`` plan restores it.
 
 Device policy: the trainer runs on ``device`` (``None`` means ``"cuda"``)
 and raises without a CUDA device unless the caller passes ``"cpu"``.
 
-Not ported yet: checkpointing (a non-empty ``ckpt_dir`` raises, ROADMAP
-Queue 1 item 9), and the reference's ``xla.gemm`` / ``xla.other``
-sub-events, which split ``train.step`` by XLA's HLO cost model: here
+Not ported yet: the reference's ``xla.gemm`` / ``xla.other`` sub-events,
+which split ``train.step`` by XLA's HLO cost model: here
 ``StepBundle.gemm_frac`` is None, which the reference itself treats as
-"attribution unavailable" (a torch-side cost split is Queue 1 item 11).
+"attribution unavailable" (a torch-side cost split is ROADMAP Queue 1
+item 6).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.ckpt.checkpoint import Checkpointer, CheckpointError
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.events import Kind
 from repro_torch.core.mitigation import Action, plan_mitigations
@@ -69,12 +72,9 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, data: DataConfig,
                  opt_cfg: OptConfig, tc: TrainConfig, dist=None,
                  device=None):
-        if tc.ckpt_dir:
-            raise NotImplementedError("checkpointing is not ported yet: "
-                                      "ROADMAP Queue 1 item 9")
         if dist is not None:
             raise NotImplementedError("distributed training is not ported "
-                                      "yet: ROADMAP Queue 1 item 11")
+                                      "yet: ROADMAP Queue 1 item 7")
         self.device = resolve_device(device)
         self.cfg, self.data_cfg, self.tc = cfg, data, tc
         self.model = Transformer(cfg, remat=tc.remat, folded=tc.folded)
@@ -92,6 +92,7 @@ class Trainer:
                 self.loader.next, lambda: None)
         else:
             self._next, self._opt_anchor = self.loader.next, lambda: None
+        self.ckpt = Checkpointer(tc.ckpt_dir) if tc.ckpt_dir else None
         self.history: list = []
         self.mitigations: list = []
         self.last_diagnosis = None       # most recent consumed PT result
@@ -113,9 +114,24 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_state(self, resume: bool = True):
         """Fresh parameters (seed ``tc.seed``) on the trainer's device and
-        their optimizer state; returns ``(params, opt_state, 0)``."""
+        their optimizer state, or with ``resume`` the latest valid
+        checkpoint of ``ckpt_dir`` restored into them; returns
+        ``(params, opt_state, start_step)``."""
         params = self.model.init(self.tc.seed, device=self.device)
-        return params, self.opt.init(params), 0
+        opt_state = self.opt.init(params)
+        start = 0
+        if self.ckpt and resume:
+            latest = self.ckpt.latest_step()
+            if latest is not None:
+                (params, opt_state), meta = self._restore(latest, params,
+                                                          opt_state)
+                start = meta["step"]
+        return params, opt_state, start
+
+    def _restore(self, step, params, opt_state):
+        tree, meta = self.ckpt.restore(step, {"params": params,
+                                              "opt": opt_state})
+        return (tree["params"], tree["opt"]), meta
 
     def _batch(self, batch_np):
         return {k: torch.from_numpy(v).to(self.device)
@@ -134,7 +150,8 @@ class Trainer:
         Every phase is a genuine host-visible span: ``dataloader.next``
         (PYTHON, including the copy of the batch to the device),
         ``train.step`` (forward + backward, ended by a device synchronize
-        on the gradients), ``optimizer.step`` (fenced on the new params).
+        on the gradients), ``optimizer.step`` (fenced on the new params),
+        and ``ckpt.save`` when a checkpoint interval hits.
         ``tracer`` may be None or inactive — the loop then runs unobserved.
         Returns ``(params, opt_state, metrics)``; the optimizer updates the
         given ``params`` and ``opt_state`` in place."""
@@ -163,6 +180,11 @@ class Trainer:
                 grads, opt_state, params)
         del grads
         self._iter += 1
+        if self.ckpt and self.tc.ckpt_every \
+                and self._iter % self.tc.ckpt_every == 0:
+            with ph("ckpt.save", Kind.PYTHON):
+                self.ckpt.save(self._iter, {"params": new_params,
+                                            "opt": new_opt})
         if self.gc_pause_s > 0.0 and self._iter % max(1, self.gc_every) == 0:
             # injected fault: unsynchronized gc stall (C2P3 stand-in)
             with ph("runtime.gc", Kind.PYTHON):
@@ -194,17 +216,24 @@ class Trainer:
                 print(f"step {step+1:5d} loss {m['loss']:.4f} "
                       f"nll {m['nll']:.4f} gnorm {m['grad_norm']:.3f} "
                       f"lr {m['lr']:.2e}", flush=True)
-            self._maybe_mitigate(step + 1)
+            if self.ckpt and self.tc.ckpt_every \
+                    and (step + 1) % self.tc.ckpt_every == 0:
+                self.ckpt.save(step + 1, {"params": params,
+                                          "opt": opt_state})
+            params, opt_state = self._maybe_mitigate(params, opt_state,
+                                                     step + 1)
+        if self.ckpt:
+            self.ckpt.save(start + n, {"params": params, "opt": opt_state},
+                           async_=False)
         self.loader.close()
         return params, opt_state
 
     # ------------------------------------------------------------------
-    def _maybe_mitigate(self, step: int) -> None:
-        """Consume the newest PerfTracker diagnosis and record the plans it
-        suggests (the checkpoint-backed actions wait for the checkpoint
-        slice)."""
+    def _maybe_mitigate(self, params, opt_state, step: int):
+        """PerfTracker output drives fault tolerance (DESIGN.md §4).
+        Returns the (possibly rolled-back) live state."""
         if not self.pt or not self.pt.results:
-            return
+            return params, opt_state
         res = self.pt.results.pop()
         self.last_diagnosis = res
         for p in plan_mitigations(res.diagnoses, fleet_size=1):
@@ -214,3 +243,25 @@ class Trainer:
             print(f"[perftracker] step {step}: "
                   f"{res.trigger.reason if res.trigger else '?'} -> "
                   f"{p.action.value}: {p.detail}", flush=True)
+            # both actions begin with an immediate checkpoint: replace
+            # re-meshes from it, checkpoint_now protects against the
+            # widespread-hardware abnormality getting worse
+            if p.action in (Action.REPLACE_HOSTS, Action.CHECKPOINT_NOW) \
+                    and self.ckpt:
+                self.ckpt.save(step, {"params": params, "opt": opt_state})
+            # rollback is REAL (DESIGN.md §14): restore the latest valid
+            # on-disk step into the live loop; with nothing usable on
+            # disk the state is honestly left as-is (no faked cure)
+            if p.action == Action.ROLLBACK_TO_CHECKPOINT and self.ckpt:
+                latest = self.ckpt.latest_step()
+                if latest is not None:
+                    try:
+                        (params, opt_state), meta = self._restore(
+                            latest, params, opt_state)
+                        self._iter = meta["step"]
+                        print(f"[perftracker] rolled back to step "
+                              f"{meta['step']}", flush=True)
+                    except CheckpointError as e:
+                        print(f"[perftracker] rollback failed: {e}",
+                              flush=True)
+        return params, opt_state

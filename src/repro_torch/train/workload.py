@@ -25,10 +25,13 @@ Live faults perturb the REAL loop (no synthesis anywhere):
 Fault magnitudes default to multiples of the worker's measured warmup
 iteration time, so scenarios stay detectable on any machine speed.
 
-Not ported yet: ``ParamCorruption`` and the recovery hooks
-(``snapshot_state``/``install_state``) wait for the checkpoint slice
-(ROADMAP Queue 1 item 9), and ``trainer_worker_main`` for the transport
-slice (item 10); they raise ``NotImplementedError``.
+``ParamCorruption`` damages the live parameters instead; only a
+``ROLLBACK_TO_CHECKPOINT`` through ``snapshot_state``/``install_state``
+(``repro_torch.ckpt.recovery.RecoveryManager.for_workload``) undoes it.
+
+Not ported yet: ``trainer_worker_main``, the multi-process worker, waits
+for the transport slice (ROADMAP Queue 1 item 5) and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -136,19 +139,21 @@ class GcPause(LiveFault):
         worker.trainer.gc_every = max(1, int(self.every))
 
 
-_CKPT_SLICE = ("waits for the checkpoint slice of the port: ROADMAP Queue 1 "
-               "item 9")
-
-
 @dataclass(frozen=True)
 class ParamCorruption(LiveFault):
-    """State damage to the live parameters, cured only by a checkpoint
-    rollback: not ported yet (``apply`` raises)."""
+    """Corrupt the LIVE model state (a bad batch / optimizer blow-up,
+    FLARE-style): every parameter is scaled so the REAL loss and gradient
+    norm explode on the numerics channel.  Unlike the timing faults above
+    this is state damage, not a hook — ``clear_faults`` cannot undo it;
+    only restoring a checkpoint can, which is exactly what the
+    ``ROLLBACK_TO_CHECKPOINT`` rung must prove it does.  While the fault
+    stays scheduled it re-corrupts each window, so a rollback alone (with
+    the underlying cause uncured) does not fake a recovery."""
     scale: float = 1e3
-    nan: bool = False
+    nan: bool = False            # plant a NaN too (the immediate trigger)
 
     def apply(self, worker: "_TrainWorker") -> None:
-        raise NotImplementedError(f"ParamCorruption {_CKPT_SLICE}")
+        worker.corrupt_params(self.scale, self.nan)
 
 
 def _install_faults(workers: Sequence["_TrainWorker"],
@@ -208,6 +213,22 @@ class _TrainWorker:
         t.data_burn_s = t.step_pad_s = t.gc_pause_s = 0.0
         t.gc_every = 1
 
+    def corrupt_params(self, scale: float, nan: bool = False) -> None:
+        """State-damage fault hook: blow up the live parameters in place
+        (and with ``nan``, plant a non-finite value in the first leaf) so
+        the next real train steps diverge for real.  The optimizer's fp32
+        master weights are left as they are, as in the reference: the
+        damaged step's gradients carry the divergence into them."""
+        import torch
+
+        from repro_torch.models.transformer import param_leaves
+        leaves = [t for _, t in param_leaves(self.params)]
+        with torch.no_grad():
+            for t in leaves:
+                t.mul_(scale)
+            if nan:
+                leaves[0].view(-1)[0] = float("nan")
+
     def run_window(self, iters: int, rate: Optional[float] = None):
         """One profiling window: returns (durations, WorkerProfile).
 
@@ -228,6 +249,8 @@ class _TrainWorker:
 
     def close(self) -> None:
         self.trainer.loader.close()
+        if self.trainer.ckpt is not None:
+            self.trainer.ckpt.wait()
 
 
 # -- the in-process workload --------------------------------------------------
@@ -282,12 +305,29 @@ class TrainerWorkload(WorkloadSource):
         self._ensure_workers()
         return float(np.median([tw.base_iter_s for tw in self.workers]))
 
-    # -- recovery hooks (DESIGN.md §14): the checkpoint slice ---------------
+    # -- recovery hooks (DESIGN.md §14) ------------------------------------
     def snapshot_state(self):
-        raise NotImplementedError(f"snapshot_state {_CKPT_SLICE}")
+        """Gather the fleet's LIVE training state for a checkpoint:
+        ``(step, tree)`` with one ``{params, opt}`` subtree per worker.
+        The step is the trainers' iteration counter (identical across
+        workers — they run the same windows).  The tree holds the live
+        tensors, which the optimizer updates in place: a checkpoint copies
+        them when it saves."""
+        self._ensure_workers()
+        step = int(self.workers[0].trainer._iter)
+        tree = {str(tw.worker): {"params": tw.params, "opt": tw.opt_state}
+                for tw in self.workers}
+        return step, tree
 
     def install_state(self, step: int, tree) -> None:
-        raise NotImplementedError(f"install_state {_CKPT_SLICE}")
+        """Push a restored checkpoint back into the running trainers
+        (the ROLLBACK_TO_CHECKPOINT landing): live params/opt_state and
+        the iteration counters rewind to the saved step."""
+        self._ensure_workers()
+        for tw in self.workers:
+            st = tree[str(tw.worker)]
+            tw.params, tw.opt_state = st["params"], st["opt"]
+            tw.trainer._iter = int(step)
 
     def run_window(self, window: int, faults: Sequence, iters: int,
                    rates: Optional[np.ndarray]) -> WindowData:
@@ -316,6 +356,6 @@ class TrainerWorkload(WorkloadSource):
 
 def trainer_worker_main(*args, **kwargs) -> None:
     """The multi-process worker entry point: waits for the daemon and the
-    socket transport (ROADMAP Queue 1 item 10)."""
+    socket transport (ROADMAP Queue 1 item 5)."""
     raise NotImplementedError("trainer_worker_main waits for the transport "
-                              "slice of the port: ROADMAP Queue 1 item 10")
+                              "slice of the port: ROADMAP Queue 1 item 5")

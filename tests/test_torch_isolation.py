@@ -1,6 +1,8 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor the JAX
 reference package ``repro``, and it does not fall back to the CPU when a
-CUDA device is expected."""
+CUDA device is expected.  The ``gpu`` test (a catalog scenario on the card
+against its host ``numpy`` run) skips without a CUDA device; on the card's
+machine: ``python -m pytest -q -m gpu tests/test_torch_isolation.py``."""
 import os
 import re
 import subprocess
@@ -10,7 +12,13 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.ckpt import RecoveryManager, SimTrainState
 from repro_torch.core.service import PerfTrackerService
+from repro_torch.core.simulation import SimConfig
+from repro_torch.online import OnlinePipeline, ScenarioRunner
+from repro_torch.online.catalog import by_name, evaluate, run_scenario
+
+from _torch_trace import run_trace
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -52,3 +60,47 @@ def test_service_without_cuda_raises_unless_cpu_is_asked(monkeypatch):
     svc = PerfTrackerService(device="cpu")
     assert svc.device.type == "cpu"
     assert svc.summarize_backend.name == "torch"
+
+
+def test_online_entry_points_without_cuda_raise_unless_cpu_is_asked(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sc = by_name("C1P1_gpu_throttle")
+    for make in (lambda: OnlinePipeline(4),
+                 lambda: ScenarioRunner(SimConfig(n_workers=4), []),
+                 lambda: run_scenario(sc),
+                 lambda: run_scenario(sc, summarize_backend="numpy"),
+                 lambda: SimTrainState(seed=3),
+                 lambda: RecoveryManager.for_sim(seed=3, save_every=0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert OnlinePipeline(4, device="cpu").service.device.type == "cpu"
+    assert SimTrainState(seed=3, device="cpu").params["w"].device.type \
+        == "cpu"
+    mgr = RecoveryManager.for_sim(seed=3, save_every=0, device="cpu")
+    assert mgr.state.params["mu"].device.type == "cpu"
+    mgr.close()
+    runner = ScenarioRunner(SimConfig(n_workers=4), [], device="cpu")
+    assert runner.pipeline.service.summarize_backend.name == "torch"
+
+
+@pytest.mark.gpu
+def test_catalog_scenario_on_card_equals_numpy_run():
+    """One catalog scenario on the card (every window's Algorithm 1 in K1)
+    gives its host ``numpy`` run's incidents, plans and windows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.pattern_summary import pattern_summary
+    sc = by_name("C1P1_gpu_throttle")
+    before = pattern_summary.launches_by_variant["warp"]
+    runner, res = run_scenario(sc)
+    assert runner.pipeline.service.summarize_backend.name == "cuda"
+    assert pattern_summary.launches_by_variant["warp"] - before \
+        >= sc.n_windows
+    host, host_res = run_scenario(sc, device="cpu",
+                                  summarize_backend="numpy")
+    assert evaluate(sc, runner, res) == evaluate(sc, host, host_res)
+    assert all(row["ok"] for row in evaluate(sc, runner, res))
+    assert run_trace(runner, res) == run_trace(host, host_res)
+    runner.engine.recovery.close()
+    host.engine.recovery.close()

@@ -26,9 +26,8 @@ from repro_torch.core.service import PerfTrackerService
 from repro_torch.instrument.tracer import Tracer, sync
 from repro_torch.models.convert import params_from_reference
 from repro_torch.train.loop import Trainer
-from repro_torch.train.workload import (DataloaderBurn, ParamCorruption,
-                                        StepThrottle, TrainerWorkload,
-                                        tiny_train_setup,
+from repro_torch.train.workload import (DataloaderBurn, StepThrottle,
+                                        TrainerWorkload, tiny_train_setup,
                                         trainer_worker_main)
 
 # autouse fixture: torch on one CPU thread
@@ -140,16 +139,14 @@ def test_trainer_without_cuda_raises_unless_cpu_is_asked(monkeypatch):
 
 
 def test_parts_not_ported_raise():
+    """Distributed training and the multi-process trainer worker wait for
+    their slices (checkpointing and ``ParamCorruption`` are ported:
+    tests/test_torch_ckpt.py)."""
     mc, dc, oc, tc = tiny_train_setup()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        Trainer(mc, dc, oc, replace(tc, ckpt_dir="ckpt"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ParamCorruption(workers=(0,)).apply(None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        Trainer(mc, dc, oc, tc, dist=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         trainer_worker_main()
-    wl = TrainerWorkload(n_workers=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        wl.snapshot_state()
 
 
 def test_run_with_perftracker_attached(capsys):
