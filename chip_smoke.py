@@ -61,7 +61,27 @@ these phases, each checked:
    device time; ``[online rollback]``, 2 real trainers at gemma2-2b's full
    width cut to 2 layers under ``ParamCorruption``, restored from a real
    checkpoint (``ROLLBACK_TO_CHECKPOINT``) bit for bit; every tick's K1
-   launches are of the warp variant.
+   launches are of the warp variant;
+9. ``[wire]`` (right after the fleet of 2): the same 256 profiles through
+   ``diagnose_profiles(mode="wire")``, one ``summarize_and_upload`` per
+   worker on the card over ``LoopbackWire``: the diagnosis equal to fleet
+   mode's bit for bit and its payload bytes to fleet mode's
+   ``pattern_bytes``, four workers' uploads against K1's plain version;
+10. serving: ``[serve engine]``, ``Engine.generate`` on the full gemma2-2b
+   (26 layers, bf16, batch 4, 16-token prompts, 32 new tokens, greedy),
+   its decode logits against one teacher-forced ``model.forward`` (K2's
+   wgmma variant) within a limit set by a control forward with K2's plain
+   version in its place, a profile of its decode steps and an A/B of the
+   decode's per-layer position copy; ``[serve fleet]``, a
+   4-worker ``ServeWorkload`` of the same model cut to 2 layers under
+   ``BurstArrivals``, ``DecodeStall`` and ``CacheThrash`` (7 windows of 8
+   requests, K1 every window), each opening the slo incident
+   ``SERVE_EXPECT`` names (the stall with its pad in worker 2's TBT);
+11. ``[multiprocess]``: ``run_multiprocess(n_procs=2)`` with K1 in the
+   children on the C1P1 cell of tests/test_wire.py, flat and through 2
+   collector shards, equal to the in-process run, two children's uploads
+   against K1's plain version, and 4 trainers of the ``[trainer fleet]``
+   model in 2 processes on the card under ``DataloaderBurn(1)``.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -329,8 +349,9 @@ def _rand(g, shape, dtype):
 
 def k2_checks(K2) -> dict:
     """K2 against its plain version, output and lse: gemma2-2b's shapes in
-    bf16 (local and global, at the trainer's length and at 8192, and a
-    window of 512 that bites at 2048), bf16 at the repo's head dims 64
+    bf16 (local and global, at the trainer's length, at 8192 and at the
+    serve engine's forward over 4 x 48 tokens, and a window of 512 that
+    bites at 2048), bf16 at the repo's head dims 64
     (internvl2-1b's heads) and 128 (starcoder2-3b's), windowed and capped
     cases of an odd number of q heads per kv head (llama4-maverick's at D
     128, and G 3 at D 256: one head a block), the reference's kernel-test
@@ -345,6 +366,13 @@ def k2_checks(K2) -> dict:
              for S in (TRAIN_SEQ, 8192)
              for w, name in ((GEMMA_WINDOW, "gemma2 local"),
                              (0, "gemma2 global"))]
+    # the serve engine's teacher-forced forward: batch 4 over 48 tokens,
+    # one partial 64-row tile
+    cases += [(torch.bfloat16,
+               (SERVE_BATCH, ENGINE_PROMPT + ENGINE_NEW, 8, 4, 256),
+               dict(GEMMA_ATTN, window=w), f"{name} (serve engine forward)")
+              for w, name in ((GEMMA_WINDOW, "gemma2 local"),
+                              (0, "gemma2 global"))]
     cases += [(torch.bfloat16, (1, TRAIN_SEQ, 8, 4, 256),
                dict(GEMMA_ATTN, window=512), "gemma2 window 512"),
               (torch.bfloat16, (1, TRAIN_SEQ, 14, 2, 64), {},
@@ -899,14 +927,15 @@ class ObservedK1:
     events around a second launch, queued behind a spin kernel so that the
     GPU runs the events and K1's memset and two kernels back to back and no
     host time falls between them (per-tick ``torch.profiler`` traces lost
-    K1 kernels on the card)."""
+    K1 kernels on the card).  ``timed=False`` leaves the second launch out,
+    so a path observed that way keeps its own launch counts."""
 
     name = "cuda"
     SPIN_CYCLES = 1_000_000      # ~0.5 ms of GPU spin: longer than the enqueue
 
-    def __init__(self, K):
+    def __init__(self, K, timed: bool = True):
         from repro_torch.summarize.backends import CudaBackend
-        self.K, self.backend = K, CudaBackend()
+        self.K, self.backend, self.timed = K, CudaBackend(), timed
         self.rows = dict.fromkeys(("all_zero", "one_run", "general"), 0)
         self.general_mismatch, self.general_err = 0, 0.0
         self.k1_ms = 0.0
@@ -914,14 +943,15 @@ class ObservedK1:
     def batch_stats(self, u: np.ndarray) -> np.ndarray:
         out = self.backend.batch_stats(u)
         t = torch.from_numpy(np.ascontiguousarray(u, np.float32)).cuda()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(self.SPIN_CYCLES)
-        start.record()
-        self.K.pattern_summary(t)
-        end.record()
-        end.synchronize()
-        self.k1_ms += start.elapsed_time(end)
+        if self.timed:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(self.SPIN_CYCLES)
+            start.record()
+            self.K.pattern_summary(t)
+            end.record()
+            end.synchronize()
+            self.k1_ms += start.elapsed_time(end)
         zero, one = path_masks(u)
         general = ~zero & ~one
         for key, m in (("all_zero", zero), ("one_run", one),
@@ -1240,6 +1270,580 @@ def online_rollback_phase(K, K2, K3, ARCHS) -> dict:
     return k1
 
 
+# -- serving, the wire and worker processes ------------------------------------
+
+SERVE_BATCH, SERVE_MAX_LEN = 4, 128
+ENGINE_PROMPT, ENGINE_NEW = 16, 32     # [serve engine]: 47 decode steps
+FLEET_PROMPT, FLEET_NEW = 4, 8         # [serve fleet]: the reference's
+SERVE_IPW, SERVE_WINDOWS = 8, 7        # requests a window; fault in [2, 7)
+#: engine decode logits vs one teacher-forced forward of the same tokens,
+#: max |difference|.  The control is the same forward with K2's plain
+#: version in its place: it differs from the decode by the decode path's
+#: own rounding (bf16 activations through 26 layers, other GEMM shapes, an
+#: f32 softmax of the cache), and the forward through K2 may be at most
+#: this factor of that control further from the decode
+#: (H100 80GB HBM3, 700 W: 0.1752 through K2 in every run, control
+#: 0.1588, the two forwards 0.1506 apart: a rounding-level change in 26
+#: layers of random weights moves the logits this much, so this check
+#: catches gross faults; K2 at this shape is held to its plain version in
+#: ``k2_checks``)
+LOGIT_CONTROL_FACTOR = 1.25
+#: the serve fleet's depth: 4 workers at gemma2-2b's full width cut to one
+#: local/global pair.  A full-depth decode step takes ~10x a 2-layer one on
+#: the host ([serve engine] against [serve fleet]'s base TBT), so the three
+#: scenarios would take ~10x too, past the script's time (PERF.md)
+SERVE_FLEET_LAYERS = 2
+PROFILED_DECODE_STEPS = 3
+MP_W, MP_WINDOWS = 32, 9               # tests/test_wire.py's C1P1 cell
+MP_CHECK_WINDOW = 3                    # GpuThrottle is live
+MP_CHECK_WORKERS = (3, 27)             # throttled in child 0, healthy in 1
+#: the slo incident each live fault must open on the card: (function,
+#: workers, first action).  The decode and KV frames name no sampled
+#: stream on the card (as in the reference off the CPU), so they keep
+#: beta-only patterns: a stalled worker's decode.step fills about all of
+#: each request as a healthy one's does, so no window of DecodeStall flags
+#: decode.step and no incident is localized to it or confirmed with a plan
+#: (None below), which is what the reference's machinery gives such windows
+#: (tests/test_torch_serve.py's no-stream tests).  An slo incident is still
+#: open while the fault is live, and the stalled worker's TBT shows the
+#: pad (``stall_ran``).
+SERVE_EXPECT = {
+    "BurstArrivals": ("serve.queue:dequeue_wait", [0, 1, 2, 3], "shed_load"),
+    "DecodeStall": None,
+    "CacheThrash": ("kv_cache.read_block", [0, 1, 2, 3], "shed_load"),
+}
+
+
+def decode_profile(engine, prompts) -> dict:
+    """``PROFILED_DECODE_STEPS`` decode steps of the engine under
+    ``torch.profiler``: device kernels a step, busy time against the
+    steps' wall time (the card's idle share) and the gaps between
+    consecutive kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    B = prompts.shape[0]
+    cache = engine.model.init_cache(B, SERVE_MAX_LEN, device=engine.device)
+    tok = torch.from_numpy(prompts[:, :1].astype(np.int64)).to(engine.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for pos in range(PROFILED_DECODE_STEPS):
+            engine._step(engine.params, cache, {"tokens": tok}, pos)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    ev = sorted(device_events(prof), key=lambda e: e.start_ns())
+    busy = sum(e.duration_ns() for e in ev) / 1e6
+    gaps = [(b.start_ns() - a.start_ns() - a.duration_ns()) / 1e3
+            for a, b in zip(ev, ev[1:])]
+    by_name = device_ms_by_name(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    n = PROFILED_DECODE_STEPS
+    out = dict(wall_ms=wall_ms / n, busy_ms=busy / n, kernels=len(ev) / n,
+               gap_us=float(np.median(gaps)) if gaps else None)
+    if not ev:
+        print("[serve engine] the profiler recorded no device time: not "
+              "measured")
+        return out
+    print(f"[serve engine] {n} decode steps under torch.profiler: wall "
+          f"{out['wall_ms']:.3f} ms a step, device busy {out['busy_ms']:.3f} "
+          f"ms a step (idle share {1 - busy / wall_ms:.2%}), "
+          f"{out['kernels']:.0f} device activities a step, median gap "
+          f"between them {out['gap_us']:.1f} us (p90 "
+          f"{float(np.percentile(gaps, 90)):.1f} us)")
+    for name, ms in top:
+        print(f"[serve engine]   {ms / n:8.4f} ms a step  {name[:100]}")
+    return out
+
+
+class _FillOnDevice:
+    """``torch`` for ``models/attention.py`` with ``tensor([pos],
+    device=d)`` (its one use there: the decode position each layer) filled
+    on ``d`` instead of copied from the host."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    @staticmethod
+    def tensor(data, device=None):
+        return torch.full((len(data),), int(data[0]), dtype=torch.int64,
+                          device=device)
+
+
+def position_copy_ab(engine, prompts) -> dict:
+    """What the decode's per-layer position copy costs a step: one
+    ``generate`` as the port runs it (``h2d``: each layer copies the
+    position from the host, a pageable copy that waits for the stream)
+    against the same with that call filled on the card (``device``),
+    in the order h2d, device, device, h2d, each after an untimed 2-token
+    generate; host wall time, and the tokens must not change."""
+    from repro_torch.models import attention as A
+    steps = ENGINE_PROMPT + ENGINE_NEW - 1
+    ways = {"h2d": torch, "device": _FillOnDevice()}
+    ms, tokens = {w: [] for w in ways}, {}
+    try:
+        for way in ("h2d", "device", "device", "h2d"):
+            A.torch = ways[way]
+            engine.generate(prompts, 2)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = engine.generate(prompts, ENGINE_NEW)
+            ms[way].append((time.perf_counter() - t) * 1e3 / steps)
+            tokens.setdefault(way, out)
+    finally:
+        A.torch = torch
+    med = {w: float(np.median(v)) for w, v in ms.items()}
+    print(f"[serve engine] position copies: ms a step h2d "
+          f"{[round(x, 4) for x in ms['h2d']]}, filled on the card "
+          f"{[round(x, 4) for x in ms['device']]}; the copies cost "
+          f"{med['h2d'] - med['device']:.4f} ms a step (medians)")
+    if not np.array_equal(tokens["h2d"], tokens["device"]):
+        raise AssertionError("the position fill changed the decoded tokens")
+    return dict(h2d_ms=ms["h2d"], device_ms=ms["device"])
+
+
+def serve_engine_phase(K, K2, K3, ARCHS) -> dict:
+    """``Engine.generate`` on gemma2-2b at its published widths (26 layers,
+    bf16, random weights from seed 0): batch 4, max_len 128, 16-token
+    prompts from seed 0, 32 new tokens, greedy.  One teacher-forced
+    ``model.forward`` over the generated sequence (K2's wgmma variant)
+    gives the logits of every position, and a control forward with K2's
+    plain version in its place.  The engine's decode logits must be no
+    further from the K2 forward than ``LOGIT_CONTROL_FACTOR`` times their
+    distance from the control, and each greedy token must be the K2
+    forward's argmax wherever its top-2 margin exceeds that limit.
+    Returns K2's launches by variant in the forward, the step time, the
+    logit errors, peak bytes, the decode profile and the position-copy
+    A/B."""
+    from repro_torch.models import attention_core as C
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = ARCHS["gemma2-2b"]
+    V = cfg.vocab_size
+    model = Transformer(cfg)
+    params = model.init(0, device="cuda")
+    engine = Engine(cfg, params, ServeConfig(batch=SERVE_BATCH,
+                                             max_len=SERVE_MAX_LEN))
+    prompts = np.random.default_rng(0).integers(
+        0, V, (SERVE_BATCH, ENGINE_PROMPT)).astype(np.int32)
+    step, decoded = engine._step, []
+
+    def recording_step(*args):
+        logits, cache = step(*args)
+        decoded.append(logits[:, 0, :V].float())
+        return logits, cache
+
+    def plain_attention(q, k, v, return_lse=False, **kw):
+        out, lse = K2.flash_attention_reference(q, k, v, **kw)
+        return (out, lse) if return_lse else out
+    engine.generate(prompts, 2)                 # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(K, K2, K3)
+    steps = ENGINE_PROMPT + ENGINE_NEW - 1
+    t = time.perf_counter()
+    toks = engine.generate(prompts, ENGINE_NEW)     # ends in a copy to host
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    k_decode = (K2.flash_attention.launches, K.pattern_summary.launches)
+    engine._step = recording_step
+    again = engine.generate(prompts, ENGINE_NEW)
+    engine._step = step
+    tok_dev = torch.from_numpy(toks.astype(np.int64)).cuda()
+    reset_counts(K, K2, K3)
+    with torch.no_grad():
+        hidden, _, _ = model.forward(params, {"tokens": tok_dev})
+        forward = model.logits(params, hidden)[..., :V].float()
+        k2 = dict(K2.flash_attention.launches_by_variant)
+        C.flash_attention = plain_attention
+        try:
+            hidden, _, _ = model.forward(params, {"tokens": tok_dev})
+            control = model.logits(params, hidden)[..., :V].float()
+        finally:
+            C.flash_attention = K2.flash_attention
+    # logits of the positions that produced the generated tokens
+    lo = ENGINE_PROMPT - 1
+    dec = torch.stack(decoded, 1)[:, lo:]
+    ref, ctl = forward[:, lo:steps], control[:, lo:steps]
+    err = float((dec - ref).abs().max())
+    ctrl = float((dec - ctl).abs().max())
+    gap = float((ref - ctl).abs().max())
+    limit = LOGIT_CONTROL_FACTOR * ctrl
+    top2 = torch.topk(ref, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    sure = margin > limit
+    agree = tok_dev[:, ENGINE_PROMPT:] == ref.argmax(-1)
+    print(f"[serve engine] gemma2-2b, {cfg.num_layers} layers, bf16, batch "
+          f"{SERVE_BATCH} x ({ENGINE_PROMPT} + {ENGINE_NEW}) tokens, greedy: "
+          f"{wall * 1e3:.3f} ms for {steps} steps, {wall * 1e3 / steps:.4f} "
+          f"ms a step (host clock, ends in the copy to host); peak "
+          f"{peak} bytes; K2 / K1 launches while decoding {k_decode}")
+    print(f"[serve engine] teacher-forced forward over {toks.shape}: K2 "
+          f"launches {k2}; max |decode - forward| logit {err:.4f}, control "
+          f"(K2's plain version in the forward) {ctrl:.4f}, limit "
+          f"{LOGIT_CONTROL_FACTOR} x control = {limit:.4f}; max |forward - "
+          f"control| {gap:.4f}; greedy token == forward argmax at "
+          f"{int(agree.sum())} of {agree.numel()} positions; "
+          f"{int(sure.sum())} have a top-2 margin over the limit, where they "
+          f"must agree, and {int((agree & sure).sum())} do; median margin "
+          f"{float(margin.median()):.4f}")
+    if not np.array_equal(toks, again) or k_decode != (0, 0) \
+            or not np.isfinite(err) or not ctrl > 0 or err > limit \
+            or not bool((agree | ~sure).all()) \
+            or k2["wgmma"] != cfg.num_layers or k2["simt"]:
+        raise AssertionError("the engine's decode disagrees with the "
+                             "teacher-forced forward")
+    del decoded, forward, control, hidden, dec, ref, ctl
+    prof = decode_profile(engine, prompts)
+    ab = position_copy_ab(engine, prompts)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(k2=k2, ms_per_step=wall * 1e3 / steps, err=err, ctrl=ctrl,
+                gap=gap, peak=peak, profile=prof, position_ab=ab)
+
+
+def serve_fleet_phase(K, K2, K3, ARCHS, expect) -> dict:
+    """``ServeWorkload``: 4 workers of gemma2-2b at its full width cut to
+    ``SERVE_FLEET_LAYERS`` layers, sharing one parameter tree, 4-token
+    prompts, 8 new tokens, batch
+    4, max_len 128; 7 windows of 8 requests, the fault live in windows 2-6,
+    under each of the three live SLO faults, each on a fresh workload (a
+    request generator keeps its backlog across windows).  The service runs
+    the ``cuda`` backend (K1 every window), observed untimed: rows by K1
+    path and the general-path rows held against the plain version.  ``expect`` maps each fault to the
+    slo-channel incident it must open: (function, workers, first action)."""
+    from repro_torch.online import ScenarioRunner, ScheduledFault
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.workload import (DECODE_STEP, BurstArrivals,
+                                            CacheThrash, DecodeStall,
+                                            ServeWorkload)
+    from repro_torch.train.workload import default_trainer_detector_cfg
+    cfg = ARCHS["gemma2-2b"].with_overrides(num_layers=SERVE_FLEET_LAYERS)
+    setup = (cfg, ServeConfig(batch=SERVE_BATCH, max_len=SERVE_MAX_LEN),
+             FLEET_PROMPT, FLEET_NEW)
+    out = {}
+    rows = ObservedK1(K, timed=False)
+    for fault in (BurstArrivals(workers=()), DecodeStall(workers=(2,)),
+                  CacheThrash(workers=())):
+        name = type(fault).__name__
+        wl = ServeWorkload(n_workers=4, setup=setup)
+        t = time.perf_counter()
+        wl._ensure_workers()
+        print(f"[serve fleet] {name}: 4 workers x gemma2-2b at "
+              f"{cfg.num_layers} layers, d_model {cfg.d_model}, batch "
+              f"{SERVE_BATCH}, {FLEET_PROMPT} + {FLEET_NEW} tokens: warm-up "
+              f"{time.perf_counter() - t:.2f} s; base request "
+              f"{[round(sw.base_request_s, 5) for sw in wl.workers]} s, base "
+              f"TBT {[round(sw.base_tbt_s, 6) for sw in wl.workers]} s")
+        seen = dict(rows.rows)
+        tbts = record_tbts(wl)
+        r = ScenarioRunner(
+            None, [ScheduledFault(fault, 2, SERVE_WINDOWS)],
+            n_windows=SERVE_WINDOWS, iters_per_window=SERVE_IPW,
+            detector_cfg=default_trainer_detector_cfg(SERVE_IPW),
+            workload=wl, summarize_backend=rows)
+        reset_counts(K, K2, K3)
+        t = time.perf_counter()
+        with TickWatch(K) as watch:
+            res = r.run()
+        run_s = time.perf_counter() - t
+        watch.assert_warp_every_tick(f"serve fleet {name}")
+        by_variant = dict(K.pattern_summary.launches_by_variant)
+        incs = [(i.function, i.channel, list(i.workers),
+                 [p.action.value for p in i.plans]) for i in res.incidents]
+        for i, rep in enumerate(res.reports):
+            print(f"[serve fleet] {name} window {i}: summarize_s "
+                  f"{rep.summarize_s:.4f}; flagged "
+                  f"{[(d.abnormality.function, d.abnormality.workers.tolist(), d.abnormality.reason) for d in rep.diagnoses]}"
+                  f"; (beta, mu, sigma) {serve_patterns(rep)}")
+        by_path = {k: rows.rows[k] - seen[k] for k in seen}
+        print(f"[serve fleet] {name}{fault.workers}: {run_s:.2f} s; "
+              f"incidents {incs}; K1 launches {by_variant}; rows by path "
+              f"{by_path}")
+        out[name] = dict(incidents=incs, launches=by_variant, rows=by_path,
+                         run_s=run_s, base_request_s=wl.base_request_s,
+                         base_tbt_s=float(np.median(
+                             [sw.base_tbt_s for sw in wl.workers])))
+        slo = [i for i in res.incidents if i.channel == "slo"]
+        live = any(open_while(res, i, 2, SERVE_WINDOWS) for i in slo)
+        print(f"[serve fleet] {name}: slo incidents opened in windows "
+              f"{[res.window_of(i.opened_at) for i in slo]}, one open while "
+              f"the fault is live: {live}; median TBT a window per worker (s) "
+              f"{[[round(float(np.median(w)), 6) for w in win] for win in tbts]}")
+        if expect[name] is None:
+            ok = not any(DECODE_STEP in rep.functions()
+                         for rep in res.reports) \
+                and not any(i[0] == DECODE_STEP or i[3] for i in incs) \
+                and live and stall_ran(wl, tbts, fault)
+        else:
+            fn, workers, action = expect[name]
+            ok = any(i[:3] == (fn, "slo", workers) and i[3]
+                     and i[3][0] == action for i in incs)
+        wl.close()
+        if not ok or by_variant["warp"] == 0 or by_variant["block"]:
+            raise AssertionError(f"{name}: the incidents {incs} are not "
+                                 f"{expect[name]}")
+    print(f"[serve fleet] rows that reached k1_warp_general "
+          f"{rows.rows['general']}, against the plain version: "
+          f"{rows.general_mismatch} count mismatches, max |mean/std err| "
+          f"{rows.general_err:.3g}")
+    if rows.general_mismatch or rows.general_err > ATOL:
+        raise AssertionError("k1_warp_general disagrees with the plain "
+                             "version in the serve fleet")
+    out["general_err"] = rows.general_err
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def record_tbts(wl) -> list:
+    """Per window, each worker's per-request TBTs: ``wl.run_window``
+    wrapped to keep what each worker measured (the list fills as the
+    scenario runs)."""
+    out, run = [], wl.run_window
+
+    def recording(*args, **kw):
+        wd = run(*args, **kw)
+        out.append([[tbt for _, tbt in sw.window_slo] for sw in wl.workers])
+        return wd
+    wl.run_window = recording
+    return out
+
+
+def open_while(res, inc, lo: int, hi: int) -> bool:
+    """``inc`` was open at some time in windows ``lo`` to ``hi - 1``: the
+    slo trigger may open an incident in a healthy window before the fault,
+    and that one then holds the fault's windows."""
+    t0, t1 = res.spans[lo][0], res.spans[hi - 1][1]
+    ended = [t for t, state in inc.history
+             if state in ("resolved", "escalated")]
+    return inc.opened_at <= t1 and (not ended or ended[-1] > t0)
+
+
+def stall_ran(wl, tbts, fault) -> bool:
+    """The stall ran where it was put: over the fault's windows 2-6 each
+    stalled worker's median TBT exceeds its base TBT by at least 0.8 of
+    its pad, and every other worker's moved less than half the smallest
+    pad from its own median in the healthy windows 0-1."""
+    pads = {w: fault.pad_s or max(0.0, fault.factor - 1.0)
+            * wl.workers[w].base_tbt_s for w in fault.workers}
+    ok = True
+    for sw in wl.workers:
+        w = sw.worker
+        live = float(np.median([t for win in tbts[2:] for t in win[w]]))
+        if w in pads:
+            moved = live - sw.base_tbt_s
+            ok &= moved >= 0.8 * pads[w]
+            print(f"[serve fleet] worker {w} (stalled): median TBT in "
+                  f"windows 2-6 {live:.6f} s, base {sw.base_tbt_s:.6f} s, "
+                  f"moved {moved:.6f} s against a pad of {pads[w]:.6f} s")
+        else:
+            calm = float(np.median([t for win in tbts[:2] for t in win[w]]))
+            ok &= live - calm < 0.5 * min(pads.values())
+    return bool(ok)
+
+
+def serve_patterns(report) -> dict:
+    """Per worker (beta, mu, sigma) of the three serving frames in a
+    window's smoothed EMA, rounded (printing only)."""
+    from repro_torch.serve.workload import DECODE_STEP, KV_READ, QUEUE_WAIT
+    pats = {}
+    for d in report.diagnoses:
+        a = d.abnormality
+        if a.function in (QUEUE_WAIT, DECODE_STEP, KV_READ):
+            pats[a.function] = np.round(np.asarray(a.patterns), 3).tolist()
+    return pats
+
+
+def wire_phase(K, K2, K3, profiles, fleet_res) -> dict:
+    """The W=256, 20 s x 10 kHz fleet through
+    ``diagnose_profiles(mode="wire")`` on the card: 256 per-worker
+    ``summarize_and_upload`` calls (K1 per worker and rate group) over
+    ``LoopbackWire``.  The diagnosis must equal fleet mode's (functions,
+    workers, patterns bit for bit) and the payload bytes fleet mode's
+    ``pattern_bytes``; four workers' uploads are held against the plain
+    version of K1 on the card."""
+    from repro_torch.core.daemon import summarize_and_upload
+    from repro_torch.core.service import PerfTrackerService
+    svc = PerfTrackerService()
+    reset_counts(K, K2, K3)
+    t = time.perf_counter()
+    res = svc.diagnose_profiles(profiles, mode="wire")
+    wall = time.perf_counter() - t
+    by_variant = dict(K.pattern_summary.launches_by_variant)
+    tm = res.timing
+    print(f"[wire] W={len(profiles)} 20s x 10kHz over LoopbackWire: "
+          f"summarize_s {tm['summarize_s']:.4f} transport_s "
+          f"{tm['transport_s']:.4f} localize_s {tm['localize_s']:.4f} wall "
+          f"{wall:.4f} s; K1 launches {by_variant}; payload bytes "
+          f"{res.pattern_bytes} (fleet mode {fleet_res.pattern_bytes}); "
+          f"transport {res.transport}")
+    if res.functions() != fleet_res.functions():
+        raise AssertionError("wire diagnosis functions differ from fleet's")
+    for a, b in zip(res.diagnoses, fleet_res.diagnoses):
+        if not (np.array_equal(a.abnormality.workers, b.abnormality.workers)
+                and np.array_equal(a.abnormality.patterns,
+                                   b.abnormality.patterns)):
+            raise AssertionError(f"wire diagnosis of "
+                                 f"{a.abnormality.function} differs")
+    if res.pattern_bytes != fleet_res.pattern_bytes \
+            or res.transport["present"] != len(profiles) \
+            or by_variant["warp"] == 0 or by_variant["block"]:
+        raise AssertionError("wire mode lost uploads or bytes")
+    plain = PerfTrackerService(summarize_backend="torch")
+    gap = 0.0
+    for w in (0, 1, len(profiles) // 2, len(profiles) - 1):
+        got, _ = summarize_and_upload(profiles[w],
+                                      backend=svc.summarize_backend).unpack()
+        want, _ = summarize_and_upload(
+            profiles[w], backend=plain.summarize_backend).unpack()
+        if list(got) != list(want):
+            raise AssertionError(f"worker {w}: functions differ")
+        gap = max(gap, max(float(np.abs(got[n].astype(np.float64)
+                                        - want[n]).max()) for n in got))
+    print(f"[wire] == fleet mode (functions, workers, patterns bit for "
+          f"bit, bytes); 4 workers' uploads vs the plain version of K1: max "
+          f"|pattern err| {gap:.3g}")
+    if gap > PATTERN_ATOL:
+        raise AssertionError("K1's uploads disagree with the plain version")
+    return dict(launches=by_variant, timing=tm, err=gap)
+
+
+def culprits(res) -> dict:
+    return {i.function: sorted(i.workers) for i in res.incidents
+            if i.function}
+
+
+def child_uploads_vs_plain(runner, res, kept) -> float:
+    """The uploads the children sent in window ``MP_CHECK_WINDOW`` for
+    ``MP_CHECK_WORKERS``, against the same workers' profiles rebuilt in
+    this process (the simulator is seeded by window and worker, as each
+    child seeds it) and summarized by K1's plain version on the card:
+    the same functions and kinds, and max |pattern err| within ``ATOL``."""
+    from repro_torch.core.daemon import summarize_and_upload
+    from repro_torch.core.simulation import FleetSimulator
+    from repro_torch.online.scenario import _WINDOW_SEED_STRIDE
+    from repro_torch.summarize.base import get_backend
+    i, cfg = MP_CHECK_WINDOW, runner.sim_cfg
+    sim = FleetSimulator(cfg, [])
+    sim.faults = [sf.fault for sf in runner.schedule if sf.active(i)]
+    slices = np.array_split(np.arange(cfg.n_workers), 2)
+    plain = get_backend("torch", "cuda")
+    worst = 0.0
+    for w in MP_CHECK_WORKERS:
+        mine = next(sl for sl in slices if w in sl).tolist()
+        profiles = sim.profile_window_slice(
+            mine, rates=res.reports[i].rates,
+            seed=cfg.seed + _WINDOW_SEED_STRIDE * (i + 1))
+        want_p, want_k = summarize_and_upload(profiles[mine.index(w)],
+                                              backend=plain).unpack()
+        got_p, got_k = kept[w].unpack()
+        if got_k != want_k:
+            raise AssertionError(f"worker {w}'s upload names other "
+                                 f"functions or kinds than the plain version")
+        worst = max([worst] + [float(np.abs(got_p[f] - want_p[f]).max())
+                               for f in want_p])
+    print(f"[multiprocess] window {i} uploads of workers "
+          f"{list(MP_CHECK_WORKERS)} from the children vs the profiles "
+          f"rebuilt here through K1's plain version: max |pattern err| "
+          f"{worst:.3g} (tolerance {ATOL})")
+    if worst > ATOL:
+        raise AssertionError("a child's K1 upload disagrees with the plain "
+                             "version")
+    return worst
+
+
+def multiprocess_phase(K, K2, K3, ARCHS) -> dict:
+    """``run_multiprocess(n_procs=2)`` with the ``cuda`` backend in the
+    children (each its own CUDA context; K1 built in the parent), on
+    tests/test_wire.py's C1P1 cell (W=32, 1 s windows, 250/2000 Hz, 9
+    windows, ``GpuThrottle(3, 11)`` in [2, 6)), flat and with 2 collector
+    shards, each against the in-process run, the flat run's uploads of two
+    workers against K1's plain version; then 4 trainers of the ``[trainer
+    fleet]`` model (gemma2-2b at full width cut to 2 layers, K2's wgmma
+    variant) in 2 processes on the card under ``DataloaderBurn(1)``."""
+    from repro_torch.core import faults as F
+    from repro_torch.core.mitigation import Action
+    from repro_torch.core.simulation import SimConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.online import (EscalationPolicy, ScenarioRunner,
+                                    ScheduledFault)
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.loop import TrainConfig
+    from repro_torch.train.workload import (DataloaderBurn, TrainerWorkload,
+                                            default_trainer_detector_cfg)
+
+    def runner():
+        return ScenarioRunner(
+            SimConfig(n_workers=MP_W, window_s=1.0, rate_hz=2000.0, seed=5),
+            [ScheduledFault(F.GpuThrottle(workers=(3, 11)), 2, 6)],
+            n_windows=MP_WINDOWS,
+            escalation=EscalationPolicy(n_workers=MP_W, base_rate_hz=250.0,
+                                        full_rate_hz=2000.0))
+    inproc = runner().run()
+    want = culprits(inproc)
+    out = {}
+    for label, kw in (("flat", {}), ("tree", {"n_shards": 2})):
+        r, kept = runner(), {}
+        if label == "flat":
+            tick = r.pipeline.window_tick_batch
+
+            def keeping(batch, t=None, rates=None):
+                if batch.window == MP_CHECK_WINDOW:
+                    kept.update({w: batch.uploads[w]
+                                 for w in MP_CHECK_WORKERS})
+                return tick(batch, t=t, rates=rates)
+            r.pipeline.window_tick_batch = keeping
+        reset_counts(K, K2, K3)
+        t = time.perf_counter()
+        res = r.run_multiprocess(n_procs=2, window_timeout=120.0, **kw)
+        run_s = time.perf_counter() - t
+        ws = res.wire_summary()
+        k1 = res.worker_launches.get("pattern_summary", {})
+        print(f"[multiprocess] C1P1 {label}: {run_s:.2f} s, 2 processes; "
+              f"culprits {culprits(res)} (in-process {want}); wire "
+              f"{ws}; K1 launches in the children {k1}, in the parent "
+              f"{dict(K.pattern_summary.launches_by_variant)}")
+        if culprits(res) != want or ws["delivered"] != ws["expected"] \
+                or not k1.get("warp") or k1.get("block"):
+            raise AssertionError(f"multiprocess {label} differs from the "
+                                 f"in-process run")
+        out[label] = dict(launches=res.worker_launches, run_s=run_s)
+        if kept:
+            out[label]["err"] = child_uploads_vs_plain(r, res, kept)
+    cfg = ARCHS["gemma2-2b"].with_overrides(num_layers=2)
+    setup = (cfg, DataConfig(batch=1, seq_len=TRAIN_SEQ), OptConfig(),
+             TrainConfig(perftracker=False))
+    wl = TrainerWorkload(n_workers=4, setup=setup, device="cuda")
+    r = ScenarioRunner(
+        None, [ScheduledFault(DataloaderBurn(workers=(1,)), 2, 7)],
+        n_windows=7, iters_per_window=FLEET_ITERS,
+        detector_cfg=default_trainer_detector_cfg(FLEET_ITERS), workload=wl)
+    reset_counts(K, K2, K3)
+    t = time.perf_counter()
+    res = r.run_multiprocess(n_procs=2, window_timeout=240.0)
+    run_s = time.perf_counter() - t
+    ws = res.wire_summary()
+    incs = [(i.function, i.channel, list(i.workers),
+             [p.action.value for p in i.plans]) for i in res.incidents]
+    print(f"[multiprocess] trainers, DataloaderBurn(1), 4 x gemma2-2b at "
+          f"{cfg.num_layers} layers in 2 processes: {run_s:.2f} s; wire "
+          f"{ws}; incidents {incs}; launches in the children "
+          f"{res.worker_launches}")
+    hit = [i for i in res.incidents if i.function == "dataloader.next"
+           and 1 in i.workers
+           and Action.MIGRATE_DATALOADER in [p.action for p in i.plans]]
+    k1 = res.worker_launches.get("pattern_summary", {})
+    k2 = res.worker_launches.get("flash_attention", {})
+    if not hit or ws["delivered"] != ws["expected"] or not k1.get("warp") \
+            or not k2.get("wgmma") or k2.get("simt"):
+        raise AssertionError("the trainer processes' DataloaderBurn was not "
+                             "localized to dataloader.next on worker 1 "
+                             "through K2's wgmma variant")
+    out["trainer"] = dict(launches=res.worker_launches, run_s=run_s)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1461,9 +2065,12 @@ def main() -> int:
     host = PerfTrackerService(summarize_backend="numpy")
     same_diagnosis(res, host.diagnose_profiles(profiles), 256)
     print("[fleet] cuda diagnosis == host numpy diagnosis")
-
-    del profiles, groups, res, host
     clock.lap("ring fault and fleet diagnosis")
+
+    # -- 4b. the same fleet over the socket transport (mode="wire") ---------
+    wire = wire_phase(K, K2, K3, profiles, res)
+    del profiles, groups, res, host
+    clock.lap("wire")
 
     # -- 5. K2 against its plain version, and its times -----------------------
     k2_err = k2_checks(K2)
@@ -1540,7 +2147,17 @@ def main() -> int:
     rollback = online_rollback_phase(K, K2, K3, ARCHS)   # K1 by variant
     clock.lap("online rollback")
 
-    # -- 11. kernels line, card, contract line --------------------------------
+    # -- 11. serving: the engine at full width, then the serve fleet ---------
+    engine = serve_engine_phase(K, K2, K3, ARCHS)
+    clock.lap("serve engine")
+    serve = serve_fleet_phase(K, K2, K3, ARCHS, SERVE_EXPECT)
+    clock.lap("serve fleet")
+
+    # -- 12. worker processes over the socket transport ----------------------
+    mp_runs = multiprocess_phase(K, K2, K3, ARCHS)
+    clock.lap("multiprocess")
+
+    # -- 13. kernels line, card, contract line --------------------------------
     k2_main = k2_times[(TRAIN_SEQ, "global")]
     print(json.dumps({"kernels": [{
         "name": "pattern_summary",
@@ -1569,6 +2186,17 @@ def main() -> int:
         "online_general_rows": {"catalog": online_cat["general_rows"],
                                 "fleet": online_fleet["general_rows"]},
         "online_general_max_abs_err": online_cat["general_err"],
+        "serve_fleet_launches_by_variant": {
+            name: serve[name]["launches"] for name in SERVE_EXPECT},
+        "serve_fleet_rows_by_path": {
+            name: serve[name]["rows"] for name in SERVE_EXPECT},
+        "serve_fleet_general_max_abs_err": serve["general_err"],
+        "wire_launches_by_variant": wire["launches"],
+        "wire_max_abs_err": wire["err"],
+        "multiprocess_child_launches_by_variant": {
+            label: run["launches"].get("pattern_summary")
+            for label, run in mp_runs.items()},
+        "multiprocess_upload_max_abs_err": mp_runs["flat"]["err"],
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -1593,6 +2221,13 @@ def main() -> int:
         "library_max_abs_err": k2_main["library_err"],
         "softcap0_ms": k2_main["ms_softcap0"],
         "softcap0_sdpa_ms": k2_main["sdpa_ms"],
+        "serve_engine_forward_launches_by_variant": engine["k2"],
+        "serve_engine_max_logit_err": {
+            "decode_vs_forward": engine["err"],
+            "decode_vs_plain_forward": engine["ctrl"],
+            "forward_vs_plain_forward": engine["gap"]},
+        "multiprocess_trainer_child_launches_by_variant":
+            mp_runs["trainer"]["launches"].get("flash_attention"),
     }, {
         "name": "ssd_scan",
         "route": "cuda",

@@ -118,3 +118,7 @@ def summarize_worker(profile: WorkerProfile,
     pats, _ = summarize_profile(profile, kind_of=kinds, backend=backend)
     return pats
 
+
+def pattern_size_bytes(patterns: Dict[str, Pattern]) -> int:
+    """Serialized size: full function identity (call stack) + 3 floats."""
+    return sum(len(name.encode()) + 12 for name in patterns)

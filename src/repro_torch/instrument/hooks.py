@@ -5,12 +5,9 @@ The provider never sees user code: ``PerfTracker.wrap(loader, opt_step)``
 replaces the two anchor callables with timed versions (the paper
 monkey-patches ``dataloader.next`` / ``optimizer.step`` the same way);
 everything else (iteration detection, trigger, profiling window,
-localization) happens behind the wrappers.
-
-The reference diagnoses each finished window in ``mode="wire"``, through
-its socket transport, which this port does not have yet (ROADMAP Queue 1
-item 10).  With no frame lost the reference's two modes give identical
-diagnoses, so here the window is diagnosed in ``mode="fleet"``.
+pattern upload, localization) happens behind the wrappers: each finished
+window is diagnosed in ``mode="wire"``, the single-worker daemon shape,
+through the socket transport (``repro_torch.transport``).
 """
 from __future__ import annotations
 
@@ -30,7 +27,7 @@ class PerfTrackerConfig:
     detector: DetectorConfig = field(default_factory=DetectorConfig)
     family: str = "dense"
     auto_profile: bool = True
-    #: summarize backend name for this worker's diagnosis (None = env/auto)
+    #: summarize backend name for this worker's daemon (None = env/auto)
     summarize_backend: Optional[str] = None
 
 
@@ -65,9 +62,12 @@ class PerfTracker:
     def _finish_window(self):
         self._window_deadline = None
         profile = self.tracer.stop_window()
+        # wire mode: the true single-worker daemon shape — and it reuses
+        # the (E, n) batch the tracer pre-packed onto profile.packed, which
+        # the fleet-wide gather path would rebuild from raw streams
         res = self.service.diagnose_profiles([profile],
                                              trigger=self.last_trigger,
-                                             mode="fleet")
+                                             mode="wire")
         self.results.append(res)
 
     def flush(self) -> Optional[DiagnosisResult]:

@@ -4,7 +4,7 @@ single-token decode path against a KV cache (port of the reference's
 ``repro/models/attention.py``).
 
 MLA (deepseek) is not ported yet: ``init_mla``, ``apply_mla`` and
-``mla_decode`` raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).
+``mla_decode`` raise ``NotImplementedError`` (ROADMAP Queue 1 item 1).
 Distribution (``dist``) and phantom-head padding are not ported either.
 """
 from __future__ import annotations
@@ -19,7 +19,7 @@ from repro_torch.models.attention_core import (  # noqa: F401
 
 Tensor = torch.Tensor
 
-_MLA = "MLA attention (deepseek) is not ported yet: ROADMAP Queue 1 item 7"
+_MLA = "MLA attention (deepseek) is not ported yet: ROADMAP Queue 1 item 1"
 
 
 # ---------------------------------------------------------------------------
@@ -94,7 +94,7 @@ def apply_gqa(p, x: Tensor, cfg, positions: Tensor, spec: AttnSpec,
     """Returns (attention output (B, S, d), (k, v))."""
     if dist is not None or pad_heads:
         raise NotImplementedError("distributed attention is not ported: "
-                                  "ROADMAP Queue 1 item 11")
+                                  "ROADMAP Queue 1 item 2")
     q, k, v = _qkv(p, x, cfg, positions)
     out = impl(q, k, v, spec)
     return _out(out, p["wo"]), (k, v)

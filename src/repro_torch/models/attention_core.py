@@ -29,7 +29,7 @@ Tensor = torch.Tensor
 NEG_INF = -1.0e30
 
 _FOLDED = ("balanced causal folding (AttnSpec.folded) is not ported: "
-           "ROADMAP Queue 1 item 7")
+           "ROADMAP Queue 1 item 1")
 
 
 class AttnSpec(NamedTuple):

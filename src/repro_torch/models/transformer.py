@@ -11,9 +11,9 @@ reference's own parameters across.  An ``ssm`` layer (mamba2) is
 ``{"ln", "mamba"}`` and runs K3 through ``models.ssm.apply_mamba2``.
 
 Not ported yet (each raises ``NotImplementedError``): the ``moe`` and
-``hybrid`` families and MLA attention (ROADMAP Queue 1 item 7), remat
-other than ``"none"``, balanced causal folding, and the ``dist`` context
-(Queue 1 item 11).
+``hybrid`` families and MLA attention, remat other than ``"none"`` and
+balanced causal folding (ROADMAP Queue 1 item 1), and the ``dist`` context
+(Queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ Tensor = torch.Tensor
 FAMILIES = ("dense", "vlm", "audio", "ssm")
 
 
-def _not_ported(what: str, item: int = 7) -> NotImplementedError:
+def _not_ported(what: str, item: int = 1) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 "
                                f"item {item}")
 
@@ -126,7 +126,7 @@ class Transformer:
         if folded:
             raise _not_ported("balanced causal folding")
         if dist is not None or pad_heads:
-            raise _not_ported("the distribution context", 11)
+            raise _not_ported("the distribution context", 2)
         self.cfg = cfg
         self.attn_impl = attn_impl or A.blocked_attention
         self.remat = remat

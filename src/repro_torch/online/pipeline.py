@@ -15,8 +15,9 @@ components into the continuous loop the paper ran for 1.5 years.
 Device policy (as the service's): the pipeline summarizes on ``device``
 (``None`` means ``"cuda"``, where every window's Algorithm 1 runs in kernel
 K1) and raises without a CUDA device unless the caller passes ``"cpu"``.
-``window_tick_batch``, the wire twin of ``window_tick``, needs the socket
-transport, which comes with the transport slice of the port.
+``window_tick_batch``, the wire twin of ``window_tick``, folds windows that
+the daemons summarized on their own devices and uploaded over the socket
+transport.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from repro_torch.core.detector import (DetectorConfig, NumericsConfig,
                                  Trigger)
 from repro_torch.core.events import Kind
 from repro_torch.core.localizer import Abnormality
-from repro_torch.core.report import Diagnosis, build_report, format_report
+from repro_torch.core.report import (Diagnosis, build_report, format_report,
+                                     format_transport)
 from repro_torch.core.service import PerfTrackerService
 from repro_torch.online.ema import EmaPatternAggregator
 from repro_torch.online.escalation import EscalationPolicy
@@ -55,6 +57,8 @@ class WindowReport:
     localize_s: float
     #: workers whose evidence arrived this window (None = full fleet)
     present: Optional[np.ndarray] = None
+    #: wire-transport counters for this window (None off the wire)
+    transport: Optional[Dict[str, object]] = None
     #: mitigation plans the engine executed this tick (DESIGN.md §9)
     mitigations: List = field(default_factory=list)
 
@@ -62,7 +66,10 @@ class WindowReport:
         return [d.abnormality.function for d in self.diagnoses]
 
     def report(self, fleet_size: int) -> str:
-        return format_report(self.diagnoses, fleet_size)
+        out = format_report(self.diagnoses, fleet_size)
+        if self.transport is not None:
+            out += "\n" + format_transport(self.transport)
+        return out
 
 
 class OnlinePipeline:
@@ -273,13 +280,36 @@ class OnlinePipeline:
     def window_tick_batch(self, batch, t: Optional[float] = None,
                           rates: Optional[np.ndarray] = None
                           ) -> WindowReport:
-        """Fold one assembled wire window into the online state: waits for
-        the transport slice of the port (ROADMAP Queue 1 item 5)."""
-        raise NotImplementedError("window_tick_batch waits for the transport "
-                                  "slice of the port: ROADMAP Queue 1 item 5")
+        """Fold one assembled wire window (``transport.WindowBatch``) into
+        the online state — the cross-process twin of ``window_tick``.
+
+        Uploads address EMA rows by worker id; workers whose upload was
+        dropped (backpressure, loss) keep their previous smoothed pattern,
+        and the batch's transport counters surface in the report."""
+        t0 = time.perf_counter()
+        if hasattr(batch, "aggregate"):
+            # collector-tree window (transport.TreeWindowBatch): shard
+            # blocks were compacted at the leaves; scatter them straight
+            # into the fleet aggregator (DESIGN.md §10)
+            agg, present = batch.aggregate(self.n_workers)
+            raw_bytes = batch.raw_bytes
+            pattern_bytes = batch.pattern_bytes
+        else:
+            uploads = batch.sorted_uploads()
+            agg, present = self.service.aggregate_batch(uploads,
+                                                        self.n_workers)
+            raw_bytes = sum(u.raw_bytes for u in uploads)
+            pattern_bytes = sum(len(u.payload) for u in uploads)
+        self.ema.fold(agg, present=present)
+        summarize_s = time.perf_counter() - t0
+        return self._finish_tick(
+            t=t, rates=rates, present=present,
+            raw_bytes=raw_bytes, pattern_bytes=pattern_bytes,
+            summarize_s=summarize_s, transport=batch.stats())
 
     def _finish_tick(self, t: Optional[float], rates, present,
-                     raw_bytes: int, pattern_bytes: int, summarize_s: float
+                     raw_bytes: int, pattern_bytes: int, summarize_s: float,
+                     transport: Optional[Dict[str, object]] = None
                      ) -> WindowReport:
         """Shared tail of every tick flavor: localize on the smoothed
         patterns, advance incidents, retune escalation."""
@@ -332,7 +362,8 @@ class OnlinePipeline:
             changed=changed, escalated=escalated, rates=rates,
             raw_bytes=raw_bytes, pattern_bytes=pattern_bytes,
             summarize_s=summarize_s, localize_s=localize_s,
-            present=present, mitigations=mitigations)
+            present=present, transport=transport,
+            mitigations=mitigations)
         self.windows.append(report)
         return report
 

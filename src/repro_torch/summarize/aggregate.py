@@ -15,7 +15,7 @@ per-function views into the same buffer.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -97,6 +97,48 @@ class PatternAggregator:
                              "wrap): call reserve_workers/intern first")
         self._buf[rows, :Fb] = block
 
+    def scatter_cols(self, rows: np.ndarray, cols: np.ndarray,
+                     block: np.ndarray) -> None:
+        """Write a dense (Wb, Fb, 3) block at explicit reserved rows AND
+        explicit interned columns — the collector-tree root's scatter
+        target (DESIGN.md §10): each shard frame carries its rack's rows
+        over its own function subset, so neither axis is a prefix of the
+        root buffer."""
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        Wb, Fb = block.shape[0], block.shape[1]
+        if rows.shape != (Wb,) or cols.shape != (Fb,):
+            raise ValueError(f"rows {rows.shape}/cols {cols.shape} must "
+                             f"match block ({Wb}, {Fb}, 3)")
+        if rows.size and (int(rows.min()) < 0
+                          or int(rows.max()) >= self._n_workers):
+            raise ValueError("scatter_cols rows outside reserved "
+                             f"[0, {self._n_workers})")
+        if cols.size and (int(cols.min()) < 0
+                          or int(cols.max()) >= len(self._names)):
+            raise ValueError("scatter_cols cols outside interned "
+                             f"[0, {len(self._names)})")
+        self._buf[np.ix_(rows, cols)] = block
+
+    def set_row(self, row: int, pats: Dict[str, np.ndarray],
+                kinds: Optional[Dict[str, Kind]] = None) -> int:
+        """Scatter one worker's patterns at an explicit reserved row (the
+        wire collector's entry: uploads address rows by worker id, and a
+        partial window simply leaves absent rows at zero)."""
+        if not 0 <= row < self._n_workers:
+            raise ValueError(f"row {row} outside reserved "
+                             f"[0, {self._n_workers})")
+        kinds = kinds or {}
+        for name, p in pats.items():
+            j = self._intern(name, kinds.get(name))
+            self._buf[row, j] = p
+        return row
+
+    def add_upload_at(self, upload, row: int) -> int:
+        """Unpack one ``PatternUpload`` into an explicit reserved row."""
+        pats, kinds = upload.unpack()
+        return self.set_row(row, pats, kinds)
+
     # -- streaming ---------------------------------------------------------
     def add_patterns(self, pats: Dict[str, np.ndarray],
                      kinds: Optional[Dict[str, Kind]] = None) -> int:
@@ -111,6 +153,17 @@ class PatternAggregator:
             j = self._intern(name, kinds.get(name))
             self._buf[w, j] = p
         return w
+
+    def add_upload(self, upload) -> int:
+        """Unpack one ``PatternUpload`` and fold it in; the transient dict
+        dies here — W uploads never coexist as Python objects."""
+        pats, kinds = upload.unpack()
+        return self.add_patterns(pats, kinds)
+
+    def extend(self, uploads: Iterable) -> "PatternAggregator":
+        for u in uploads:
+            self.add_upload(u)
+        return self
 
     # -- results -----------------------------------------------------------
     @property

@@ -16,7 +16,7 @@ Not ported yet: the reference's ``xla.gemm`` / ``xla.other`` sub-events,
 which split ``train.step`` by XLA's HLO cost model: here
 ``StepBundle.gemm_frac`` is None, which the reference itself treats as
 "attribution unavailable" (a torch-side cost split is ROADMAP Queue 1
-item 6).
+item 1).
 """
 from __future__ import annotations
 
@@ -74,7 +74,7 @@ class Trainer:
                  device=None):
         if dist is not None:
             raise NotImplementedError("distributed training is not ported "
-                                      "yet: ROADMAP Queue 1 item 7")
+                                      "yet: ROADMAP Queue 1 item 2")
         self.device = resolve_device(device)
         self.cfg, self.data_cfg, self.tc = cfg, data, tc
         self.model = Transformer(cfg, remat=tc.remat, folded=tc.folded)

@@ -46,10 +46,10 @@ def make_split_train_step(model: Transformer, opt: AdamW):
 def make_train_step(model: Transformer, opt: AdamW, accum_steps: int = 1):
     """The fused step ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``.  Gradient accumulation (``accum_steps > 1``) is
-    not ported yet (ROADMAP Queue 1 item 7)."""
+    not ported yet (ROADMAP Queue 1 item 1)."""
     if accum_steps != 1:
         raise NotImplementedError("gradient accumulation is not ported yet: "
-                                  "ROADMAP Queue 1 item 7")
+                                  "ROADMAP Queue 1 item 1")
     grad_step = _grad_fn(model)
 
     def train_step(params, opt_state, batch):

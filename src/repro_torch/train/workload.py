@@ -29,9 +29,9 @@ iteration time, so scenarios stay detectable on any machine speed.
 ``ROLLBACK_TO_CHECKPOINT`` through ``snapshot_state``/``install_state``
 (``repro_torch.ckpt.recovery.RecoveryManager.for_workload``) undoes it.
 
-Not ported yet: ``trainer_worker_main``, the multi-process worker, waits
-for the transport slice (ROADMAP Queue 1 item 5) and raises
-``NotImplementedError``.
+``trainer_worker_main`` is the multi-process worker: real trainers for a
+fleet slice in a spawned process, uploading patterns and measured anchors
+over the socket transport (``ScenarioRunner.run_multiprocess``).
 """
 from __future__ import annotations
 
@@ -354,8 +354,63 @@ class TrainerWorkload(WorkloadSource):
         self.workers = []
 
 
-def trainer_worker_main(*args, **kwargs) -> None:
-    """The multi-process worker entry point: waits for the daemon and the
-    socket transport (ROADMAP Queue 1 item 5)."""
-    raise NotImplementedError("trainer_worker_main waits for the transport "
-                              "slice of the port: ROADMAP Queue 1 item 5")
+# -- the multi-process worker entry point -------------------------------------
+
+def trainer_worker_main(addresses, worker_ids, n_total, cfgs, schedule,
+                        backend, max_queue, auth_token, max_frame,
+                        iters_per_window, rate_hz=100.0, device=None,
+                        summarize_device=None, stats=None) -> None:
+    """One spawned process: real trainers for a fleet slice, driven by the
+    parent's ``window_start`` broadcasts over the socket transport.
+
+    Builds and warms up BEFORE dialing the collector, so the parent's
+    connection-wait doubles as the warm-up barrier and window 0's anchors
+    are already steady-state.  Per window: install the schedule's live
+    faults, run each worker's iterations, ship the measured durations
+    (``anchors`` frame, undroppable) and the summarized pattern upload.
+
+    The trainers run on ``device`` and the daemons summarize with
+    ``backend`` on ``summarize_device`` (each ``None`` means ``"cuda"``,
+    which raises without a CUDA device).  ``stats``, when given, receives
+    this process's kernel launch counts as it exits."""
+    from repro_torch.core.daemon import PerfTrackerDaemon
+    from repro_torch.online.scenario import _kernel_launches
+    mc, dc, oc, tc = cfgs
+    workers: List[_TrainWorker] = []
+    daemons = {}
+    try:
+        bundle = None
+        for w in worker_ids:
+            tw = _TrainWorker(int(w), mc, dc, oc, tc, n_shards=int(n_total),
+                              rate_hz=rate_hz, bundle=bundle, device=device)
+            bundle = tw.warmup()
+            workers.append(tw)
+        daemons = {tw.worker: PerfTrackerDaemon(
+            tw.worker, addr, backend=backend, max_queue=max_queue,
+            auth_token=auth_token, max_frame=max_frame,
+            device=summarize_device)
+            for tw, addr in zip(workers, addresses)}
+        control = daemons[workers[0].worker]
+        while True:
+            msg = control.recv_control(timeout=120.0)
+            if msg is None or msg.get("t") == "stop":
+                return
+            if msg.get("t") != "window_start":
+                continue
+            i = int(msg["window"])
+            rates = msg.get("rates")
+            _install_faults(workers,
+                            [sf.fault for sf in schedule if sf.active(i)])
+            for tw in workers:
+                r = None if rates is None else float(rates[tw.worker])
+                durs, prof = tw.run_window(int(iters_per_window), rate=r)
+                d = daemons[tw.worker]
+                d.send_anchors(i, durs, numerics=tw.window_numerics)
+                d.process_window(i, prof)
+    finally:
+        for d in daemons.values():
+            d.close()
+        for tw in workers:
+            tw.close()
+        if stats is not None:
+            stats.put(_kernel_launches())

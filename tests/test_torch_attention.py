@@ -220,5 +220,5 @@ def test_blocked_attention_on_cpu_equals_plain_k2():
 
 def test_folded_schedule_is_not_ported():
     q, k, v = (_t(a) for a in _qkv(8, 1, 64, 2, 2, 16))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         C.blocked_attention(q, k, v, C.AttnSpec(folded=True))

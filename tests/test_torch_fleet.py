@@ -160,11 +160,15 @@ def test_ring_fault_flags_worker_9_and_detector_agrees():
 
 
 def test_wire_mode_and_batches_wait_for_the_transport_slice():
-    svc = PerfTrackerService(device="cpu")
-    with pytest.raises(NotImplementedError, match="transport slice"):
-        svc.diagnose_profiles([], mode="wire")
-    with pytest.raises(NotImplementedError, match="transport slice"):
-        svc.diagnose_batch(None)
+    """The transport slice is ported: ``mode="wire"`` and
+    ``diagnose_batch`` give the fleet mode's diagnosis (the wider parity
+    lives in tests/test_torch_wire.py); an unknown mode still raises."""
+    _, port = _fleets(SCENARIOS[0].values[0])
+    svc = PerfTrackerService(summarize_backend="numpy", device="cpu")
+    fleet = svc.diagnose_profiles(port)
+    wire = svc.diagnose_profiles(port, mode="wire")
+    assert_same_diagnosis(wire, fleet)
+    assert wire.transport["present"] == len(port)
     with pytest.raises(ValueError):
         svc.diagnose_profiles([], mode="bogus")
 

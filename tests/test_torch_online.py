@@ -583,12 +583,25 @@ def test_replace_hosts_mapping_and_standby_exhaustion():
 
 
 def test_window_tick_batch_waits_for_the_transport_slice():
-    pipe = OnlinePipeline(4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pipe.window_tick_batch(None)
-    runner = ScenarioRunner(SimConfig(n_workers=4), [], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        runner.run_multiprocess(n_procs=2)
+    """The transport slice is ported: a window assembled over the socket
+    transport folds like the same profiles through ``window_tick`` (the
+    multi-process runner is held in tests/test_torch_multiprocess*.py)."""
+    from repro_torch.core.daemon import summarize_and_upload
+    from repro_torch.transport import LoopbackWire
+    sim = FleetSimulator(SimConfig(n_workers=8, window_s=1.0, rate_hz=1000,
+                                   seed=3), [F.GpuThrottle(workers=(3,))])
+    profiles = sim.profile_window()
+    a = OnlinePipeline(8, summarize_backend="numpy", device="cpu")
+    b = OnlinePipeline(8, summarize_backend="numpy", device="cpu")
+    ra = a.window_tick(profiles, t=1.0)
+    with LoopbackWire(range(8)) as wire:
+        batch = wire.send_round(
+            [summarize_and_upload(p, backend="numpy") for p in profiles])
+    rb = b.window_tick_batch(batch, t=1.0)
+    np.testing.assert_array_equal(a.ema.matrix()[0], b.ema.matrix()[0])
+    assert ra.functions() == rb.functions()
+    assert rb.transport["present"] == 8 and ra.transport is None
+    assert "transport: 8/8 workers reported" in rb.report(8)
 
 
 # -- critical_intervals --------------------------------------------------------

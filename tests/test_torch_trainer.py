@@ -139,14 +139,19 @@ def test_trainer_without_cuda_raises_unless_cpu_is_asked(monkeypatch):
 
 
 def test_parts_not_ported_raise():
-    """Distributed training and the multi-process trainer worker wait for
-    their slices (checkpointing and ``ParamCorruption`` are ported:
-    tests/test_torch_ckpt.py)."""
+    """Distributed training and gradient accumulation wait for their
+    slices (checkpointing and ``ParamCorruption`` are ported:
+    tests/test_torch_ckpt.py; so is the multi-process trainer worker,
+    ``trainer_worker_main``: tests/test_torch_multiprocess_more.py)."""
+    from repro_torch.train.step import make_train_step
     mc, dc, oc, tc = tiny_train_setup()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         Trainer(mc, dc, oc, tc, dist=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        trainer_worker_main()
+    tr = Trainer(mc, dc, oc, tc, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+        make_train_step(tr.model, tr.opt, accum_steps=2)
+    tr.loader.close()
+    assert callable(trainer_worker_main)
 
 
 def test_run_with_perftracker_attached(capsys):
