@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds kernels K1 (``src/repro_torch/csrc/pattern_summary.cu``), K2
 (``src/repro_torch/csrc/flash_attention.cu``: the wgmma/TMA kernel for bf16
-at D 64-256 and the SIMT kernel for f32 and bf16 at D 16-32) and K3
+at D 64-256 and at MLA's q/k 192 with v 128, and the SIMT kernel for f32
+and bf16 at D 16-32) and K3
 (``src/repro_torch/csrc/ssd_scan.cu``: four wgmma/TMA passes for bf16 at
 P 64/128, N and chunk multiples of 64 up to 256, and the SIMT kernel for the
 rest) with nvcc for sm_90a, all at once, prints their ptxas reports and how
@@ -27,11 +28,13 @@ these phases, each checked:
    attention shapes (bf16, local and global layers, at the trainer's 2048
    tokens and at 8192, and a window of 512), bf16 at head dims 64 and 128,
    windowed cases with an odd number of q heads per kv head at D 128 and
-   256, and at the f32 shapes of the reference's kernel tests; K2 timed beside
-   its bound, its plain version, the library call that computes the same
-   function (``flex_attention`` under ``torch.compile``, with a tanh
-   ``score_mod`` and the causal/window block mask) and, for softcap 0,
-   ``scaled_dot_product_attention``;
+   256, at the f32 shapes of the reference's kernel tests, and at
+   deepseek-v2's MLA (q/k head dim 192, v 128, 16 heads: 2048 tokens, 4 x
+   48, 200); K2 timed beside its bound, its plain version, the library call
+   that computes the same function (``flex_attention`` under
+   ``torch.compile``, with a tanh ``score_mod`` and the causal/window block
+   mask) and, for softcap 0, ``scaled_dot_product_attention``; at MLA's
+   shape beside SDPA with ``is_causal``, naming the backend it picked;
 4. the full gemma2-2b trainer (26 layers, full width, bf16 with fp32 AdamW
    state) for 5 steps of batch 1 x 2048 tokens through
    ``Trainer.train_iteration``: 26 K2 launches a step, all of the wgmma
@@ -77,6 +80,15 @@ these phases, each checked:
    ``BurstArrivals``, ``DecodeStall`` and ``CacheThrash`` (7 windows of 8
    requests, K1 every window), each opening the slo incident
    ``SERVE_EXPECT`` names (the stall with its pad in worker 2's TBT);
+   between them the ``moe`` family: ``[moe serve]``, the same check of
+   ``Engine.generate`` on deepseek-v2-lite-16b at its published widths and
+   full depth (27 layers, 15.7 B parameters built on the card: MLA decode
+   against the latent cache, 64 + 2 experts top-6), with its routing, cache
+   bytes, bytes bound and decode profile; ``[moe pair]``, the check on one
+   llama4-maverick (dense, MoE) pair at full width (18.7 B parameters, 128
+   experts top-1); ``[moe trainer]``, deepseek-v2-lite-16b at full width cut
+   to 4 layers (1 dense + 3 MoE), 5 steps of 1 x 2048 tokens, 4 K2 wgmma
+   launches a step, finite losses and a positive aux loss;
 11. ``[multiprocess]``: ``run_multiprocess(n_procs=2)`` with K1 in the
    children on the C1P1 cell of tests/test_wire.py, flat and through 2
    collector shards, equal to the in-process run, two children's uploads
@@ -133,6 +145,7 @@ K2_LSE_TOL = 1e-3        # K2's lse vs its plain version, every case (the
 #                          card tests' limit): the backward reads it
 GEMMA_ATTN = dict(softcap=50.0, scale=256 ** -0.5)   # gemma2-2b's layers
 GEMMA_WINDOW = 4096
+MLA_SCALE = 192 ** -0.5  # deepseek-v2's attention: (nope 128 + rope 64)^-0.5
 TRAIN_SEQ = 2048     # the trainer's tokens per step (batch 1)
 TRAIN_STEPS = 5
 FLEET_ITERS = 8      # iterations per profiling window (the reference's IPW)
@@ -355,12 +368,15 @@ def k2_checks(K2) -> dict:
     (internvl2-1b's heads) and 128 (starcoder2-3b's), windowed and capped
     cases of an odd number of q heads per kv head (llama4-maverick's at D
     128, and G 3 at D 256: one head a block), the reference's kernel-test
-    shapes and variants in f32.  Each case must run the variant
-    ``variant_for`` names."""
+    shapes and variants in f32, and deepseek-v2's MLA at q/k head dim 192
+    and v 128 (16 heads: the trainer's 2048 tokens, the serve forward's 4 x
+    48 and 200 tokens, no multiple of the 64-row kv tile).  Each case must
+    run the variant ``variant_for`` names."""
     g = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     worst_lse = 0.0
     bf16_ratio = 0.0      # worst |err| / (ATOL + RTOL * |ref|) in bf16
+    mla_worst = 0.0       # worst |err| at MLA's (192, 128)
     cases = [(torch.bfloat16, (1, S, 8, 4, 256),
               dict(GEMMA_ATTN, window=w), name)
              for S in (TRAIN_SEQ, 8192)
@@ -392,10 +408,17 @@ def k2_checks(K2) -> dict:
                          dict(causal=False), dict(window=64, softcap=10.0))]
     cases += [(torch.float32, (1, 2048, 8, 4, 256), dict(GEMMA_ATTN, window=w),
                "gemma2 f32") for w in (GEMMA_WINDOW, 0)]
-    for dtype, (B, S, H, KV, D), kw, name in cases:
+    cases += [(torch.bfloat16, (B, S, 16, 16, 192, 128), dict(scale=MLA_SCALE),
+               f"deepseek-v2 MLA {name}")
+              for B, S, name in ((1, TRAIN_SEQ, "(trainer)"),
+                                 (SERVE_BATCH, ENGINE_PROMPT + ENGINE_NEW,
+                                  "(serve forward)"),
+                                 (1, 200, "(200 tokens)"))]
+    for dtype, (B, S, H, KV, D, *Dv), kw, name in cases:
+        Dv = Dv[0] if Dv else D
         q = _rand(g, (B, S, H, D), dtype)
-        k, v = _rand(g, (B, S, KV, D), dtype), _rand(g, (B, S, KV, D), dtype)
-        variant = K2.variant_for(dtype, D)
+        k, v = _rand(g, (B, S, KV, D), dtype), _rand(g, (B, S, KV, Dv), dtype)
+        variant = K2.variant_for(dtype, D, Dv)
         before = K2.flash_attention.launches_by_variant[variant]
         out, lse = K2.flash_attention(q, k, v, return_lse=True, **kw)
         ref, ref_lse = K2.flash_attention_reference(q, k, v, **kw)
@@ -417,9 +440,12 @@ def k2_checks(K2) -> dict:
             bf16_ratio = max(bf16_ratio, ratio)
             extra = (f", max |ref| {float(ref.float().abs().max()):.3g}, "
                      f"worst err / limit {ratio:.3g}")
+        dims = f"D={D}" if Dv == D else f"D={D} Dv={Dv}"
         print(f"[k2 check] {name} {dtype} ({variant}) B={B} S={S} H={H} "
-              f"KV={KV} D={D} {kw}: max |out err| {err:.3g}, max |lse err| "
+              f"KV={KV} {dims} {kw}: max |out err| {err:.3g}, max |lse err| "
               f"{lse_err:.3g}{extra}")
+        if Dv != D:
+            mla_worst = max(mla_worst, err)
         del q, k, v, out, lse, ref, ref_lse, diff
     print(f"[k2 check] worst bf16 {worst[torch.bfloat16]:.4g} at "
           f"{bf16_ratio:.3g} of its limit ({BF16_ATOL} + {BF16_RTOL} "
@@ -430,7 +456,7 @@ def k2_checks(K2) -> dict:
             or not worst_lse <= K2_LSE_TOL:
         raise AssertionError("K2 disagrees with its plain version")
     return {"bf16": worst[torch.bfloat16], "f32": worst[torch.float32],
-            "lse": worst_lse}
+            "lse": worst_lse, "mla": mla_worst}
 
 
 def sass_counts(lib: Path) -> dict | None:
@@ -555,6 +581,72 @@ def k2_timing(K2, flush) -> dict:
                                   sdpa_ms=sdpa_ms)
         del q, k, v
     return res
+
+
+#: SDPA backends by a fragment of their device kernels' names, the first
+#: that matches naming the backend
+SDPA_KERNELS = (("cudnn", "cudnn"), ("efficient", "fmha"),
+                ("flash", "flash"), ("math", "gemm"))
+
+
+def k2_mla_timing(K2, flush) -> dict:
+    """K2 at deepseek-v2's attention as the trainer hands it over: bf16
+    q/k (1, 2048, 16, 192), v (1, 2048, 16, 128), causal, MLA's scale; by
+    CUDA events and by ``torch.profiler`` device time (3 calls), beside its
+    bound, its plain version and ``scaled_dot_product_attention`` with
+    ``is_causal=True`` and the same scale, whose backend is named by the
+    kernels it launched (q/k and v of different head dims rule out
+    FlashAttention-2)."""
+    from torch.profiler import ProfilerActivity, profile
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = _rand(g, (1, TRAIN_SEQ, 16, 192), torch.bfloat16)
+    k = _rand(g, (1, TRAIN_SEQ, 16, 192), torch.bfloat16)
+    v = _rand(g, (1, TRAIN_SEQ, 16, 128), torch.bfloat16)
+    kw = dict(scale=MLA_SCALE)
+    kms = timed_ms(lambda: K2.flash_attention(q, k, v, **kw), TIMED_LAUNCHES,
+                   flush)
+    pms = timed_ms(lambda: K2.flash_attention_reference(q, k, v, **kw), 3)
+    bms, by = K2.bound_ms(q, k, Dv=v.shape[-1])
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              scale=MLA_SCALE)
+    lib_ms = timed_ms(sdpa, TIMED_LAUNCHES, flush)
+    ref = K2.flash_attention_reference(q, k, v, **kw)[0].float()
+    lib_err = float((sdpa().transpose(1, 2).float() - ref).abs().max())
+    del ref
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            flush.zero_()
+            K2.flash_attention(q, k, v, **kw)
+        flush.zero_()
+        sdpa()
+        torch.cuda.synchronize()
+    own = [e.duration_ns() / 1e6 for e in device_events(prof)
+           if "flash_fwd_wgmma" in e.name()]
+    names = [e.name() for e in device_events(prof)
+             if "flash_fwd_wgmma" not in e.name()
+             and "fill" not in e.name().lower()]
+    backend = next((b for b, frag in SDPA_KERNELS
+                    if any(frag in n.lower() for n in names)), "unknown")
+    dev = sum(own) / len(own) if own else 0.0
+    print(f"[k2 time] deepseek-v2 MLA bf16 q/k (1, {TRAIN_SEQ}, 16, 192) v "
+          f"(1, {TRAIN_SEQ}, 16, 128) causal: kernel {kms:.4f} ms (device "
+          f"{dev:.4f} ms by torch.profiler over {len(own)} calls), bound "
+          f"{bms:.4f} ms by {by} ({share(bms, kms)} of bound), plain "
+          f"{pms:.3f} ms, sdpa is_causal {lib_ms:.4f} ms (backend "
+          f"{backend}: {sorted(set(n[:60] for n in names))[:3]}; max |err| "
+          f"vs plain {lib_err:.3g})")
+    if not lib_err <= K2_LIBRARY_TOL:
+        raise AssertionError(f"SDPA disagrees with K2's plain version by "
+                             f"{lib_err}")
+    del q, k, v, qt, kt, vt
+    return dict(ms=kms, device_ms=dev, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms, library_backend=backend,
+                library_err=lib_err)
 
 
 def attention_backward_ms(C, K2, flush) -> dict:
@@ -746,13 +838,14 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
     tracer = Tracer(worker=0)
     tracer.start_window()
     reset_counts(*kernels)
-    per_step, rows = [], []
+    per_step, rows, aux = [], [], []
     for i in range(TRAIN_STEPS):
         before = counter.launches
         params, opt_state, m = tr.train_iteration(params, opt_state,
                                                   tracer=tracer)
         per_step.append(counter.launches - before)
         rows.append((float(m["loss"]), float(m["grad_norm"])))
+        aux.append(float(m["aux"]))
     launches = counter.launches
     by_variant = dict(getattr(counter, "launches_by_variant", {}))
     prof = tracer.stop_window()
@@ -768,12 +861,15 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
         d, s, o = (top[3 * i + j].duration for j in range(3))
         steps.append(dict(dataloader_next_s=d, train_step_s=s,
                           optimizer_step_s=o, loss=loss, grad_norm=gnorm))
+        aux_note = f" (aux {aux[i]:.6f})" if cfg.is_moe else ""
         print(f"{tag} step {i + 1}: dataloader.next {d:.4f} s, "
               f"train.step {s:.4f} s, optimizer.step {o:.4f} s; loss "
-              f"{loss:.4f} grad norm {gnorm:.4f}; {label} launches "
+              f"{loss:.4f}{aux_note} grad norm {gnorm:.4f}; {label} launches "
               f"{per_step[i]}; max memory allocated {peak} bytes")
     if not all(math.isfinite(x) for r in rows for x in r):
         raise AssertionError("trainer loss or grad norm not finite")
+    if cfg.is_moe and not all(math.isfinite(a) and a > 0 for a in aux):
+        raise AssertionError(f"MoE aux losses {aux}")
     if per_step != [cfg.num_layers] * TRAIN_STEPS:
         raise AssertionError(f"{label} launches per step {per_step}, "
                              f"expected {cfg.num_layers}")
@@ -783,11 +879,11 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
     gc.collect()
     torch.cuda.empty_cache()
     return dict(launches=launches, by_variant=by_variant, steps=steps,
-                peak=peak, state_bytes=state_bytes, profile=profile)
+                peak=peak, state_bytes=state_bytes, profile=profile, aux=aux)
 
 
 #: kernel-name fragments of the matrix products (cuBLAS / CUTLASS kernels)
-GEMM_NAMES = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "cublas")
+GEMM_NAMES = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "cublas", "nvjet")
 
 
 def device_events(prof) -> list:
@@ -831,7 +927,7 @@ def step_profile(tr, params, opt_state, tag, label, fragment) -> dict:
     if busy == 0:
         print(f"{ptag} the profiler recorded no device time: not measured")
     else:
-        print(f"{ptag} one full-depth step under torch.profiler: wall "
+        print(f"{ptag} one more step under torch.profiler: wall "
               f"{wall_ms:.2f} ms, device busy {busy:.2f} ms (idle share "
               f"{1 - busy / wall_ms:.2%}); {label} {own:.2f} ms, GEMM "
               f"kernels {gemm:.2f} ms, other kernels "
@@ -1274,6 +1370,9 @@ def online_rollback_phase(K, K2, K3, ARCHS) -> dict:
 
 SERVE_BATCH, SERVE_MAX_LEN = 4, 128
 ENGINE_PROMPT, ENGINE_NEW = 16, 32     # [serve engine]: 47 decode steps
+MOE_ARCH = "deepseek-v2-lite-16b"     # [moe serve] at full depth, and
+MOE_TRAIN_LAYERS = 4                   # [moe trainer] cut to 1 dense + 3 MoE
+PAIR_ARCH, PAIR_NEW = "llama4-maverick-400b-a17b", 8   # [moe pair]
 FLEET_PROMPT, FLEET_NEW = 4, 8         # [serve fleet]: the reference's
 SERVE_IPW, SERVE_WINDOWS = 8, 7        # requests a window; fault in [2, 7)
 #: engine decode logits vs one teacher-forced forward of the same tokens,
@@ -1314,7 +1413,7 @@ SERVE_EXPECT = {
 }
 
 
-def decode_profile(engine, prompts) -> dict:
+def decode_profile(engine, prompts, tag: str) -> dict:
     """``PROFILED_DECODE_STEPS`` decode steps of the engine under
     ``torch.profiler``: device kernels a step, busy time against the
     steps' wall time (the card's idle share) and the gaps between
@@ -1341,17 +1440,17 @@ def decode_profile(engine, prompts) -> dict:
     out = dict(wall_ms=wall_ms / n, busy_ms=busy / n, kernels=len(ev) / n,
                gap_us=float(np.median(gaps)) if gaps else None)
     if not ev:
-        print("[serve engine] the profiler recorded no device time: not "
+        print(f"{tag} the profiler recorded no device time: not "
               "measured")
         return out
-    print(f"[serve engine] {n} decode steps under torch.profiler: wall "
+    print(f"{tag} {n} decode steps under torch.profiler: wall "
           f"{out['wall_ms']:.3f} ms a step, device busy {out['busy_ms']:.3f} "
           f"ms a step (idle share {1 - busy / wall_ms:.2%}), "
           f"{out['kernels']:.0f} device activities a step, median gap "
           f"between them {out['gap_us']:.1f} us (p90 "
           f"{float(np.percentile(gaps, 90)):.1f} us)")
     for name, ms in top:
-        print(f"[serve engine]   {ms / n:8.4f} ms a step  {name[:100]}")
+        print(f"{tag}   {ms / n:8.4f} ms a step  {name[:100]}")
     return out
 
 
@@ -1401,30 +1500,68 @@ def position_copy_ab(engine, prompts) -> dict:
     return dict(h2d_ms=ms["h2d"], device_ms=ms["device"])
 
 
-def serve_engine_phase(K, K2, K3, ARCHS) -> dict:
-    """``Engine.generate`` on gemma2-2b at its published widths (26 layers,
-    bf16, random weights from seed 0): batch 4, max_len 128, 16-token
-    prompts from seed 0, 32 new tokens, greedy.  One teacher-forced
-    ``model.forward`` over the generated sequence (K2's wgmma variant)
-    gives the logits of every position, and a control forward with K2's
-    plain version in its place.  The engine's decode logits must be no
-    further from the K2 forward than ``LOGIT_CONTROL_FACTOR`` times their
-    distance from the control, and each greedy token must be the K2
-    forward's argmax wherever its top-2 margin exceeds that limit.
-    Returns K2's launches by variant in the forward, the step time, the
-    logit errors, peak bytes, the decode profile and the position-copy
-    A/B."""
+class RouteLog:
+    """Records, while it is entered, each MoE layer's tokens per expert and
+    rows dropped by capacity, by wrapping ``models.moe.route`` (which the
+    layer looks up at each call)."""
+
+    def __init__(self):
+        from repro_torch.models import moe as M
+        self.M, self.layers, self.capacity = M, [], None
+
+    def __enter__(self):
+        self.orig = route = self.M.route
+
+        def recording(p, x, cfg, capacity):
+            out = route(p, x, cfg, capacity)
+            self.layers.append((out[4], (~out[6]).sum()))
+            self.capacity = capacity
+            return out
+        self.M.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.M.route = self.orig
+
+    def summary(self) -> dict:
+        counts = torch.stack([c for c, _ in self.layers]).cpu()
+        dropped = int(sum(int(d) for _, d in self.layers))
+        return dict(layers=len(self.layers), capacity=self.capacity,
+                    min=int(counts.min()), max=int(counts.max()),
+                    dropped=dropped, pairs=int(counts.sum()))
+
+
+def engine_vs_forward(tag, cfg, K, K2, K3, prompt_len: int,
+                      n_new: int) -> dict:
+    """``Engine.generate`` on ``cfg`` built on the card (``init`` with no
+    device: the card) from seed 0: batch 4, max_len 128, ``prompt_len``
+    tokens of prompt from seed 0, ``n_new`` new tokens, greedy.  One
+    teacher-forced ``model.forward`` over the generated sequence (K2's
+    wgmma variant) gives the logits of every position, and a control forward
+    with K2's plain version in its place.  The engine's decode logits must
+    be no further from the K2 forward than ``LOGIT_CONTROL_FACTOR`` times
+    their distance from the control, and each greedy token must be the K2
+    forward's argmax wherever its top-2 margin exceeds that limit.  An MoE
+    model's forward also reports its routing (``RouteLog``).  Two generates
+    of a dense model give the same tokens; an MoE model's combine
+    (``index_add_`` in bf16, atomics in no fixed order) may flip a near-tie
+    between runs, so the forward takes the recorded run's tokens and the
+    count of tokens that differ is printed.  Returns the engine, its prompts
+    and the readings; the caller frees the engine."""
     from repro_torch.models import attention_core as C
+    from repro_torch.models.layers import param_bytes
     from repro_torch.models.transformer import Transformer
     from repro_torch.serve.engine import Engine, ServeConfig
-    cfg = ARCHS["gemma2-2b"]
     V = cfg.vocab_size
     model = Transformer(cfg)
-    params = model.init(0, device="cuda")
+    t = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
     engine = Engine(cfg, params, ServeConfig(batch=SERVE_BATCH,
                                              max_len=SERVE_MAX_LEN))
     prompts = np.random.default_rng(0).integers(
-        0, V, (SERVE_BATCH, ENGINE_PROMPT)).astype(np.int32)
+        0, V, (SERVE_BATCH, prompt_len)).astype(np.int32)
     step, decoded = engine._step, []
 
     def recording_step(*args):
@@ -1439,21 +1576,23 @@ def serve_engine_phase(K, K2, K3, ARCHS) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(K, K2, K3)
-    steps = ENGINE_PROMPT + ENGINE_NEW - 1
+    steps = prompt_len + n_new - 1
     t = time.perf_counter()
-    toks = engine.generate(prompts, ENGINE_NEW)     # ends in a copy to host
+    toks = engine.generate(prompts, n_new)      # ends in a copy to host
     wall = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated()
     k_decode = (K2.flash_attention.launches, K.pattern_summary.launches)
     engine._step = recording_step
-    again = engine.generate(prompts, ENGINE_NEW)
+    again = engine.generate(prompts, n_new)
     engine._step = step
-    tok_dev = torch.from_numpy(toks.astype(np.int64)).cuda()
+    runs_differ = int((toks != again).sum())
+    tok_dev = torch.from_numpy(again.astype(np.int64)).cuda()
     reset_counts(K, K2, K3)
-    with torch.no_grad():
+    with torch.no_grad(), RouteLog() as routes:
         hidden, _, _ = model.forward(params, {"tokens": tok_dev})
         forward = model.logits(params, hidden)[..., :V].float()
-        k2 = dict(K2.flash_attention.launches_by_variant)
+    k2 = dict(K2.flash_attention.launches_by_variant)
+    with torch.no_grad():
         C.flash_attention = plain_attention
         try:
             hidden, _, _ = model.forward(params, {"tokens": tok_dev})
@@ -1461,24 +1600,34 @@ def serve_engine_phase(K, K2, K3, ARCHS) -> dict:
         finally:
             C.flash_attention = K2.flash_attention
     # logits of the positions that produced the generated tokens
-    lo = ENGINE_PROMPT - 1
+    lo = prompt_len - 1
     dec = torch.stack(decoded, 1)[:, lo:]
     ref, ctl = forward[:, lo:steps], control[:, lo:steps]
     err = float((dec - ref).abs().max())
     ctrl = float((dec - ctl).abs().max())
     gap = float((ref - ctl).abs().max())
+    scale = float(ref.abs().max())
     limit = LOGIT_CONTROL_FACTOR * ctrl
     top2 = torch.topk(ref, 2, dim=-1).values
     margin = top2[..., 0] - top2[..., 1]
     sure = margin > limit
-    agree = tok_dev[:, ENGINE_PROMPT:] == ref.argmax(-1)
-    print(f"[serve engine] gemma2-2b, {cfg.num_layers} layers, bf16, batch "
-          f"{SERVE_BATCH} x ({ENGINE_PROMPT} + {ENGINE_NEW}) tokens, greedy: "
+    agree = tok_dev[:, prompt_len:] == ref.argmax(-1)
+    nbytes = param_bytes(params)
+    cache_bytes, bound = decode_bytes_bound(engine, nbytes)
+    print(f"{tag} {cfg.name}, {cfg.num_layers} layers, bf16, {nbytes} bytes "
+          f"of parameters (init on the card {init_s:.2f} s), batch "
+          f"{SERVE_BATCH} x ({prompt_len} + {n_new}) tokens, greedy: "
           f"{wall * 1e3:.3f} ms for {steps} steps, {wall * 1e3 / steps:.4f} "
           f"ms a step (host clock, ends in the copy to host); peak "
-          f"{peak} bytes; K2 / K1 launches while decoding {k_decode}")
-    print(f"[serve engine] teacher-forced forward over {toks.shape}: K2 "
-          f"launches {k2}; max |decode - forward| logit {err:.4f}, control "
+          f"{peak} bytes; K2 / K1 launches while decoding {k_decode}; "
+          f"tokens that differ between two generates {runs_differ}")
+    print(f"{tag} cache {cache_bytes} bytes; a decode step reads every "
+          f"weight (the reference computes every expert) and the cache: "
+          f"bound {bound:.4f} ms at 3.35 TB/s, the step "
+          f"{wall * 1e3 / steps / bound:.1f}x it")
+    print(f"{tag} teacher-forced forward over {toks.shape}: K2 "
+          f"launches {k2}; max |forward logit| {scale:.4f}; max |decode - "
+          f"forward| logit {err:.4f}, control "
           f"(K2's plain version in the forward) {ctrl:.4f}, limit "
           f"{LOGIT_CONTROL_FACTOR} x control = {limit:.4f}; max |forward - "
           f"control| {gap:.4f}; greedy token == forward argmax at "
@@ -1486,20 +1635,100 @@ def serve_engine_phase(K, K2, K3, ARCHS) -> dict:
           f"{int(sure.sum())} have a top-2 margin over the limit, where they "
           f"must agree, and {int((agree & sure).sum())} do; median margin "
           f"{float(margin.median()):.4f}")
-    if not np.array_equal(toks, again) or k_decode != (0, 0) \
+    routing = routes.summary() if routes.layers else None
+    if routing:
+        print(f"{tag} routing of that forward: {routing['layers']} MoE "
+              f"layers x {tok_dev.numel()} tokens x top-{cfg.top_k}: tokens "
+              f"per (layer, expert) min {routing['min']} max "
+              f"{routing['max']} (capacity {routing['capacity']}); rows "
+              f"dropped by capacity {routing['dropped']} of "
+              f"{routing['pairs']}")
+    if (runs_differ and not cfg.is_moe) or k_decode != (0, 0) \
             or not np.isfinite(err) or not ctrl > 0 or err > limit \
             or not bool((agree | ~sure).all()) \
             or k2["wgmma"] != cfg.num_layers or k2["simt"]:
-        raise AssertionError("the engine's decode disagrees with the "
+        raise AssertionError(f"{tag} the engine's decode disagrees with the "
                              "teacher-forced forward")
     del decoded, forward, control, hidden, dec, ref, ctl
-    prof = decode_profile(engine, prompts)
-    ab = position_copy_ab(engine, prompts)
-    del engine, params
+    return dict(engine=engine, prompts=prompts, k2=k2, runs_differ=runs_differ,
+                ms_per_step=wall * 1e3 / steps, err=err, ctrl=ctrl, gap=gap,
+                peak=peak, param_bytes=nbytes, routing=routing,
+                logit_scale=scale, cache_bytes=cache_bytes, bound_ms=bound)
+
+
+def decode_bytes_bound(engine, nbytes: int) -> tuple:
+    """(cache bytes, the least ms of one decode step at 3.35 TB/s): every
+    parameter byte and the whole cache read once, except the embedding
+    table, of which only the batch's rows are read unless it is also the LM
+    head."""
+    cfg = engine.cfg
+    cache = engine.model.init_cache(SERVE_BATCH, SERVE_MAX_LEN)  # the card
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for c in cache for t in c.values())
+    table = engine.params["embed"]["table"]
+    read = nbytes + cache_bytes
+    if not cfg.tie_embeddings:
+        read -= (table.shape[0] - SERVE_BATCH) * table[0].numel() \
+            * table.element_size()
+    return cache_bytes, read / 3.35e12 * 1e3
+
+
+def free_engine(run: dict) -> None:
+    """Drop an ``engine_vs_forward`` run's engine and parameters from the
+    card."""
+    run.pop("engine")
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(k2=k2, ms_per_step=wall * 1e3 / steps, err=err, ctrl=ctrl,
-                gap=gap, peak=peak, profile=prof, position_ab=ab)
+
+
+def serve_engine_phase(K, K2, K3, ARCHS) -> dict:
+    """``engine_vs_forward`` on gemma2-2b at its published widths (26
+    layers), 16-token prompts and 32 new tokens, then a profile of its
+    decode steps and the position-copy A/B.  Returns K2's launches by
+    variant in the forward, the step time, the logit errors, peak bytes,
+    the decode profile and the A/B."""
+    run = engine_vs_forward("[serve engine]", ARCHS["gemma2-2b"], K, K2, K3,
+                            ENGINE_PROMPT, ENGINE_NEW)
+    run["profile"] = decode_profile(run["engine"], run["prompts"],
+                                    "[serve engine]")
+    run["position_ab"] = position_copy_ab(run["engine"], run["prompts"])
+    free_engine(run)
+    return run
+
+
+def moe_serve_phase(K, K2, K3, ARCHS) -> dict:
+    """``engine_vs_forward`` on deepseek-v2-lite-16b at its published
+    widths and depth (27 layers: MLA with kv_lora 512, 64 routed experts
+    top-6 plus 2 shared, layer 0 dense), 16-token prompts and 32 new
+    tokens, with its decode profile; its cache holds only the latent and
+    the roped key dims of each token (4 x 128 x (512 + 64) x 2 bytes a
+    layer)."""
+    cfg = ARCHS[MOE_ARCH]
+    run = engine_vs_forward("[moe serve]", cfg, K, K2, K3, ENGINE_PROMPT,
+                            ENGINE_NEW)
+    want = SERVE_BATCH * SERVE_MAX_LEN * (cfg.kv_lora_rank
+                                          + cfg.qk_rope_dim) * 2 \
+        * cfg.num_layers
+    if run["cache_bytes"] != want:
+        raise AssertionError(f"latent cache {run['cache_bytes']} bytes, "
+                             f"expected {want}")
+    run["profile"] = decode_profile(run["engine"], run["prompts"],
+                                    "[moe serve]")
+    free_engine(run)
+    return run
+
+
+def moe_pair_phase(K, K2, K3, ARCHS) -> dict:
+    """``engine_vs_forward`` on one (dense, MoE) pair of
+    llama4-maverick-400b-a17b at its published widths (d_model 5120, GQA 40
+    / 8 heads of 128, dense ff 16 384, 128 experts of ff 8192 top-1 plus a
+    shared expert, vocab 202 048): 16-token prompts and ``PAIR_NEW`` new
+    tokens."""
+    cfg = ARCHS[PAIR_ARCH].with_overrides(num_layers=2)
+    run = engine_vs_forward("[moe pair]", cfg, K, K2, K3, ENGINE_PROMPT,
+                            PAIR_NEW)
+    free_engine(run)
+    return run
 
 
 def serve_fleet_phase(K, K2, K3, ARCHS, expect) -> dict:
@@ -1905,6 +2134,10 @@ def main() -> int:
             f"D={d} {K2.variant_for(dt, d)} "
             f"{K2.flash_attention.smem_bytes(dt, d)} bytes of shared memory"
             for d in K2.HEAD_DIMS))
+    print(f"[build] K2 bf16 (D, Dv)={K2.MLA_HEAD_DIMS}: "
+          f"{K2.variant_for(torch.bfloat16, *K2.MLA_HEAD_DIMS)} "
+          f"{K2.flash_attention.smem_bytes(torch.bfloat16, *K2.MLA_HEAD_DIMS)}"
+          f" bytes of shared memory")
     sass, sass3 = sass_counts(libs[1]), sass_counts(libs[2])
     for name, counts in (("K2", sass), ("K3", sass3)):
         if counts is None:
@@ -2078,6 +2311,7 @@ def main() -> int:
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device="cuda")
     k2_times = k2_timing(K2, flush)
+    k2_mla = k2_mla_timing(K2, flush)
     bwd = attention_backward_ms(C, K2, flush)
     head = logits_ce_ms(L, flush)
     del flush
@@ -2150,6 +2384,25 @@ def main() -> int:
     # -- 11. serving: the engine at full width, then the serve fleet ---------
     engine = serve_engine_phase(K, K2, K3, ARCHS)
     clock.lap("serve engine")
+
+    # -- 11b. the moe family: deepseek-v2-lite-16b served at full depth, one
+    # llama4-maverick (dense, MoE) pair, deepseek trained with depth cut -----
+    moe_serve = moe_serve_phase(K, K2, K3, ARCHS)
+    clock.lap("moe serve")
+    moe_pair = moe_pair_phase(K, K2, K3, ARCHS)
+    clock.lap("moe pair")
+    mtcfg = ARCHS[MOE_ARCH].with_overrides(num_layers=MOE_TRAIN_LAYERS)
+    moe_tr = trainer_phase("[moe trainer]", mtcfg, TRAIN_SEQ, (K, K2, K3),
+                           "K2", K2.flash_attention, "flash_fwd", Trainer,
+                           TrainConfig, DataConfig, OptConfig, Tracer)
+    print(f"[moe trainer] K2 launches by variant in the {TRAIN_STEPS} "
+          f"counted steps: {moe_tr['by_variant']}; aux losses "
+          f"{moe_tr['aux']}; peak {moe_tr['peak']} bytes, state "
+          f"{moe_tr['state_bytes']} bytes")
+    if moe_tr["by_variant"] != {"wgmma": moe_tr["launches"], "simt": 0}:
+        raise AssertionError("the moe trainer's K2 launches were not all "
+                             "wgmma")
+    clock.lap("moe trainer")
     serve = serve_fleet_phase(K, K2, K3, ARCHS, SERVE_EXPECT)
     clock.lap("serve fleet")
 
@@ -2228,6 +2481,24 @@ def main() -> int:
             "forward_vs_plain_forward": engine["gap"]},
         "multiprocess_trainer_child_launches_by_variant":
             mp_runs["trainer"]["launches"].get("flash_attention"),
+        "mla_shape": {
+            "shape": f"bf16 q/k (1, {TRAIN_SEQ}, 16, 192) v (1, {TRAIN_SEQ}, "
+                     f"16, 128), causal: one deepseek-v2-lite-16b layer",
+            "launches": moe_tr["launches"],
+            "launches_by_variant": moe_tr["by_variant"],
+            "serve_forward_launches_by_variant": moe_serve["k2"],
+            "pair_forward_launches_by_variant": moe_pair["k2"],
+            "max_abs_err": k2_err["mla"],
+            "ms": k2_mla["ms"],
+            "device_ms": k2_mla["device_ms"],
+            "plain_ms": k2_mla["plain_ms"],
+            "bound_ms": k2_mla["bound_ms"],
+            "bound_by": k2_mla["bound_by"],
+            "library_ms": k2_mla["library_ms"],
+            "library_call": "scaled_dot_product_attention(is_causal=True, "
+                            f"scale=192^-0.5), backend "
+                            f"{k2_mla['library_backend']}",
+            "library_max_abs_err": k2_mla["library_err"]},
     }, {
         "name": "ssd_scan",
         "route": "cuda",

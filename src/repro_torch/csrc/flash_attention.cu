@@ -2,19 +2,22 @@
 //
 // Replaces the JAX reference's Pallas TPU kernel
 // src/repro/kernels/flash_attention.py:25 (`_kernel`, launched by the
-// `pallas_call` at :95): online-softmax attention over q (B, Sq, H, D) and
-// k/v (B, Skv, KV, D), with GQA (kv head h / (H/KV)), causal masking
+// `pallas_call` at :95): online-softmax attention over q and k (B, S, heads,
+// D) and v (B, Skv, KV, Dv), with GQA (kv head h / (H/KV)), causal masking
 // (qpos >= kpos), a sliding window (qpos - kpos < window), a tanh logit
-// softcap and a scale (1/sqrt(D) by default).  The output is in q's dtype;
-// lse (B, Sq, H) fp32 (m + log l per row) is written too, for the backward.
+// softcap and a scale (1/sqrt(D) by default).  The output (B, Sq, H, Dv) is
+// in q's dtype; lse (B, Sq, H) fp32 (m + log l per row) is written too, for
+// the backward.  Dv differs from D only in MLA (deepseek-v2: q/k 192 = 128
+// nope + 64 rope dims, v 128), which the wgmma kernel takes as (192, 128).
 // Tensors are read in the JAX layout (B, S, H, D) through their strides,
 // with D contiguous: nothing is transposed.
 //
 // Two kernels compute that function; the wrapper
 // (kernels/flash_attention.py::variant_for) picks one by a fixed rule before
-// any launch: bf16 with D in {64, 128, 256} runs `flash_fwd_wgmma`, float32
-// and bf16 with D in {16, 32} run `flash_fwd`.  A failed launch of either
-// raises; nothing retries on the other.
+// any launch: bf16 with (D, Dv) in {(64, 64), (128, 128), (256, 256), (192,
+// 128)} runs `flash_fwd_wgmma`, float32 and bf16 with D = Dv in {16, 32} run
+// `flash_fwd`.  A failed launch of either raises; nothing retries on the
+// other.
 //
 // `flash_fwd_wgmma` (bf16, tensor cores).  One block of 3 warpgroups (384
 // threads) per 128 q rows: (64 rows, 2 heads of one kv head, batch) when
@@ -31,22 +34,26 @@
 //   comes from positions only.
 // - Warpgroups 1 and 2 are consumers of 64 q rows each (setmaxnreg.inc
 //   240).  S = Q K^T is wgmma m64n64k16, both operands from shared memory,
-//   K-major, D/16 k-steps.  The softmax runs on the accumulator in
-//   registers: scale and softcap (tanh from ex2, accurate to ~1e-7
-//   absolute; tanh.approx's 2^-11 relative error would move p by ~2% at
-//   scores near a cap of 50), the mask only on tiles that cross the
+//   K-major, D/16 k-steps (12 at MLA's D = 192).  The softmax runs on the
+//   accumulator in registers: scale and softcap (tanh from ex2, accurate
+//   to ~1e-7 absolute; tanh.approx's 2^-11 relative error would move p by
+//   ~2% at scores near a cap of 50), the mask only on tiles that cross the
 //   diagonal, the window's edge or kv_len, row max and row sum over the
 //   accumulator's quad (2 shuffles, the sum only once at the end), exp2
 //   with log2(e) folded into the scale.  P is rounded to bf16 in registers
 //   and fed to wgmma as the A operand (the m64n64 accumulator fragment is
-//   the k16 A fragment); O += P V is D/64 m64n64k16 per 16 kv rows, V from
+//   the k16 A fragment); O += P V is Dv/64 m64n64k16 per 16 kv rows, V from
 //   shared memory MN-major (D contiguous, the transpose bit set).  The
 //   stage is released after the P V wgmma has been waited on.
 // - Shared memory holds the operands as TMA writes them with the 128-byte
 //   swizzle: 64-column atoms (a 128-byte row of 64 bf16), so a Q, K or V
 //   row of D = 256 is 4 atoms, each wgmma descriptor steps across them.
-//   At D = 256: Q 64 KB, K + V 2 stages x 64 KB: 192 KB (+1 KB to align).
-//   Registers per consumer thread at D = 256: O 128 fp32, S 32, P 16.
+//   Q and K tiles have D/64 atoms, V tiles and the O accumulator Dv/64
+//   (`WLayout<D, Dv>`).  At D = 256: Q 64 KB, K + V 2 stages x 64 KB:
+//   192 KB (+1 KB to align); at MLA's (192, 128): Q 48 KB, K 2 x 24 KB,
+//   V 2 x 16 KB: 128 KB.  Registers per consumer thread at D = 256: O 128
+//   fp32, S 32, P 16; at (192, 128) O is 64.  MLA's V is not padded to 192:
+//   that would add a copy and half again the P V work.
 // - Epilogue: O / max(l, 1e-30) to bf16 stored from registers, rows past
 //   Sq skipped; lse = m + log(max(l, 1e-30)), or -1e30 for a row the mask
 //   empties wholly, as the reference's kernel gives.
@@ -69,8 +76,8 @@
 // take fp32 only as TF32 (about 3 digits).  At D = 256 the block takes
 // 137 KB of dynamic shared memory in fp32, hence cudaFuncSetAttribute.
 //
-// Bound on an H100 SXM: operations.  4 * D FLOPs per unmasked (q, k) pair
-// and head (the causal and window pairs counted, not Sq * Skv) at the
+// Bound on an H100 SXM: operations.  2 (D + Dv) FLOPs per unmasked (q, k)
+// pair and head (the causal and window pairs counted, not Sq * Skv) at the
 // dense tensor-core rate of the input type (989 TFLOP/s bf16), against
 // bytes (q, k, v, out read or written once) at 3.35 TB/s; at the gemma2-2b
 // shapes the FLOPs dominate by two orders of magnitude.  What still holds
@@ -79,7 +86,8 @@
 // other), blocks are not persistent (each loads its Q and pays its
 // prologue and epilogue in turn, and the causal blocks are unequal), and
 // every wgmma is n64, so both consumers read each K tile from shared
-// memory separately.
+// memory separately.  At MLA's shape H = KV (K and V are materialized per
+// head), so every block runs one head and no K/V tile serves two heads.
 //
 // The Hopper building blocks (mbarriers, TMA, wgmma and its descriptors,
 // tensor-map encoding) live in sm90.cuh, shared with K3.
@@ -310,17 +318,20 @@ struct WParams {
 // Byte offsets in the block's shared memory, from a 1024-byte-aligned base
 // (the 128-byte swizzle repeats every 8 rows = 1024 bytes, and wgmma's
 // descriptors assume atoms that start on that period).  An operand tile is
-// kAtoms atoms, one per 64 columns, each `rows` x 128 bytes.
-template <int D> struct WLayout {
-  static constexpr int kAtoms = D / kAtomCols;
+// one atom per 64 columns, each `rows` x 128 bytes: Q and K tiles
+// kQKAtoms (D / 64), V tiles kVAtoms (Dv / 64).
+template <int D, int Dv> struct WLayout {
+  static constexpr int kQKAtoms = D / kAtomCols;
+  static constexpr int kVAtoms = Dv / kAtomCols;
   static constexpr int kQAtom = kWRows * kRowBytes;
   static constexpr int kKVAtom = kWCols * kRowBytes;
-  static constexpr int kQBytes = kAtoms * kQAtom;
-  static constexpr int kTileBytes = kAtoms * kKVAtom;   // one K or V tile
+  static constexpr int kQBytes = kQKAtoms * kQAtom;
+  static constexpr int kKTileBytes = kQKAtoms * kKVAtom;   // one K tile
+  static constexpr int kVTileBytes = kVAtoms * kKVAtom;    // one V tile
   static constexpr int kQ0 = 0;
   static constexpr int kK = kQBytes;
-  static constexpr int kV = kK + kWStages * kTileBytes;
-  static constexpr int kBar = kV + kWStages * kTileBytes;
+  static constexpr int kV = kK + kWStages * kKTileBytes;
+  static constexpr int kBar = kV + kWStages * kVTileBytes;
   // q_full, k_full[kWStages], v_full[kWStages], empty[kWStages]
   static constexpr int kNumBars = 1 + 3 * kWStages;
   static constexpr int kBytes = kBar + 8 * kNumBars + 1024;   // + alignment
@@ -357,13 +368,13 @@ __device__ __forceinline__ float tanh_acc(float u) {
 // the m64n64 fragment, thread t (warp w, lane l) holds rows 16w + l/4 (+8)
 // and, for register i, column 8 (i / 4) + 2 (l % 4) + (i % 2) of row half
 // (i / 2) % 2.
-template <int D>
+template <int D, int Dv>
 __device__ __forceinline__ void consume(const WParams& p,
                                         unsigned char* smem, uint64_t* bars,
                                         int c, int q0, int h, int b,
                                         int jbeg, int jend) {
-  using L = WLayout<D>;
-  constexpr int NA = L::kAtoms;
+  using L = WLayout<D, Dv>;
+  constexpr int NA = L::kVAtoms;      // 64-column atoms of V and of O
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;
   uint64_t* v_full = bars + 1 + kWStages;
@@ -390,8 +401,8 @@ __device__ __forceinline__ void consume(const WParams& p,
   for (int j = jbeg, it = 0; j < jend; ++j, ++it) {
     const int s = it % kWStages;
     const uint32_t ph = (it / kWStages) & 1;
-    const uint32_t sk = smem_u32(smem + L::kK + s * L::kTileBytes);
-    const uint32_t sv = smem_u32(smem + L::kV + s * L::kTileBytes);
+    const uint32_t sk = smem_u32(smem + L::kK + s * L::kKTileBytes);
+    const uint32_t sv = smem_u32(smem + L::kV + s * L::kVTileBytes);
 
     // S = Q K^T: D/16 k-steps of 16 columns, 4 per 64-column atom
     float sc[32];
@@ -524,12 +535,12 @@ __device__ __forceinline__ void consume(const WParams& p,
 // one head) or 2 (two heads of one kv head, 64 rows each, sharing every K
 // and V tile).  Q's shared tile is 128 rows either way, consumer c's at row
 // 64c.
-template <int D, int kHeads>
+template <int D, int Dv, int kHeads>
 __global__ void __launch_bounds__(kWThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const WParams p) {
-  using L = WLayout<D>;
+  using L = WLayout<D, Dv>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -557,7 +568,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == 0) {
       const int kvh = h / (p.H / p.KV);
       mbar_expect_tx(bars, L::kQBytes);
-      for (int a = 0; a < L::kAtoms; ++a)
+      for (int a = 0; a < L::kQKAtoms; ++a)
         for (int hh = 0; hh < kHeads; ++hh)
           tma_load(smem + L::kQ0 + a * L::kQAtom + hh * kRows * kRowBytes,
                    &tm_q, bars, a * kAtomCols, h + hh, q0, b);
@@ -566,21 +577,21 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         uint64_t* k_full = bars + 1 + s;
         uint64_t* v_full = bars + 1 + kWStages + s;
         mbar_wait(bars + 1 + 2 * kWStages + s, ((it / kWStages) & 1) ^ 1);
-        mbar_expect_tx(k_full, L::kTileBytes);
-        for (int a = 0; a < L::kAtoms; ++a)
-          tma_load(smem + L::kK + s * L::kTileBytes + a * L::kKVAtom, &tm_k,
+        mbar_expect_tx(k_full, L::kKTileBytes);
+        for (int a = 0; a < L::kQKAtoms; ++a)
+          tma_load(smem + L::kK + s * L::kKTileBytes + a * L::kKVAtom, &tm_k,
                    k_full, a * kAtomCols, kvh, j * kWCols, b);
-        mbar_expect_tx(v_full, L::kTileBytes);
-        for (int a = 0; a < L::kAtoms; ++a)
-          tma_load(smem + L::kV + s * L::kTileBytes + a * L::kKVAtom, &tm_v,
+        mbar_expect_tx(v_full, L::kVTileBytes);
+        for (int a = 0; a < L::kVAtoms; ++a)
+          tma_load(smem + L::kV + s * L::kVTileBytes + a * L::kKVAtom, &tm_v,
                    v_full, a * kAtomCols, kvh, j * kWCols, b);
       }
     }
   } else {
     reg_alloc<240>();
     const int c = threadIdx.x / 128 - 1;
-    consume<D>(p, smem, bars, c, kHeads == 1 ? q0 + 64 * c : q0,
-               kHeads == 1 ? h : h + c, b, jbeg, jend);
+    consume<D, Dv>(p, smem, bars, c, kHeads == 1 ? q0 + 64 * c : q0,
+                   kHeads == 1 ? h : h + c, b, jbeg, jend);
   }
 }
 
@@ -635,29 +646,36 @@ static long long simt_smem(int D) {
   return 0;
 }
 
-template <int D, int kHeads>
+template <int D, int Dv, int kHeads>
 static cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                                 const CUtensorMap& tv, const WParams& p,
                                 int B, cudaStream_t stream) {
-  constexpr int smem = WLayout<D>::kBytes;
+  constexpr int smem = WLayout<D, Dv>::kBytes;
   constexpr int rows = kWRows / kHeads;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma<D, kHeads>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_wgmma<D, Dv, kHeads>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + rows - 1) / rows, p.H / kHeads, B);
-  flash_fwd_wgmma<D, kHeads><<<grid, kWThreads, smem, stream>>>(tq, tk, tv,
-                                                                 p);
+  flash_fwd_wgmma<D, Dv, kHeads><<<grid, kWThreads, smem, stream>>>(
+      tq, tk, tv, p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int Dv>
 static cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                                 const CUtensorMap& tv, const WParams& p,
                                 int B, int heads_per_block,
                                 cudaStream_t stream) {
-  return heads_per_block == 2 ? launch_wgmma<D, 2>(tq, tk, tv, p, B, stream)
-                              : launch_wgmma<D, 1>(tq, tk, tv, p, B, stream);
+  return heads_per_block == 2
+             ? launch_wgmma<D, Dv, 2>(tq, tk, tv, p, B, stream)
+             : launch_wgmma<D, Dv, 1>(tq, tk, tv, p, B, stream);
+}
+
+// the (D, Dv) pairs of the wgmma kernel
+static bool wgmma_pair(int D, int Dv) {
+  return (D == Dv && (D == 64 || D == 128 || D == 256))
+      || (D == 192 && Dv == 128);
 }
 
 }  // namespace k2
@@ -692,14 +710,15 @@ extern "C" int k2_flash_attention(
   return (int)err;
 }
 
-// The wgmma kernel `flash_fwd_wgmma`: bf16 q/k/v with D in {64, 128, 256}.
-// q/k/v strides (elements) are those the TMA descriptors read by: 16-byte
-// multiples, with a 16-byte-aligned base (the wrapper checks both).
-// Returns 0, a cudaError_t of the launch, or minus the CUresult of a
-// failed tensor-map encoding.
+// The wgmma kernel `flash_fwd_wgmma`: bf16 q/k/v with (D, Dv) in {(64, 64),
+// (128, 128), (256, 256), (192, 128)}; D is the head dim of q and k, Dv
+// that of v and the output.  q/k/v strides (elements) are those the TMA
+// descriptors read by: 16-byte multiples, with a 16-byte-aligned base (the
+// wrapper checks both).  Returns 0, a cudaError_t of the launch, or minus
+// the CUresult of a failed tensor-map encoding.
 extern "C" int k2_flash_attention_wgmma(
     const void* q, const void* k, const void* v, void* o, float* lse,
-    int B, int Sq, int Skv, int H, int KV, int D,
+    int B, int Sq, int Skv, int H, int KV, int D, int Dv,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -707,7 +726,7 @@ extern "C" int k2_flash_attention_wgmma(
     int causal, int window, float softcap, float scale, int q_offset,
     int kv_len, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || KV <= 0 || H % KV != 0
-      || (D != 64 && D != 128 && D != 256))
+      || !k2::wgmma_pair(D, Dv))
     return (int)cudaErrorInvalidValue;
   // two q heads per block when they share a kv head (H / KV even), so
   // each K and V tile serves both; else 128 rows of one head
@@ -718,7 +737,7 @@ extern "C" int k2_flash_attention_wgmma(
   if (r == 0)
     r = sm90::make_map(&tk, k, D, KV, Skv, B, k_sh, k_ss, k_sb, k2::kWCols);
   if (r == 0)
-    r = sm90::make_map(&tv, v, D, KV, Skv, B, v_sh, v_ss, v_sb, k2::kWCols);
+    r = sm90::make_map(&tv, v, Dv, KV, Skv, B, v_sh, v_ss, v_sb, k2::kWCols);
   if (r != 0) return r;
   k2::WParams p;
   p.o = o; p.lse = lse; p.Sq = Sq; p.H = H; p.KV = KV;
@@ -728,21 +747,25 @@ extern "C" int k2_flash_attention_wgmma(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int hpb = heads_per_block;
   cudaError_t err =
-      D == 64 ? k2::launch_wgmma<64>(tq, tk, tv, p, B, hpb, st)
-      : D == 128 ? k2::launch_wgmma<128>(tq, tk, tv, p, B, hpb, st)
-                 : k2::launch_wgmma<256>(tq, tk, tv, p, B, hpb, st);
+      D == 64 ? k2::launch_wgmma<64, 64>(tq, tk, tv, p, B, hpb, st)
+      : D == 128 ? k2::launch_wgmma<128, 128>(tq, tk, tv, p, B, hpb, st)
+      : D == 192 ? k2::launch_wgmma<192, 128>(tq, tk, tv, p, B, hpb, st)
+                 : k2::launch_wgmma<256, 256>(tq, tk, tv, p, B, hpb, st);
   return (int)err;
 }
 
-// dynamic shared memory of one block of the kernel that runs (dtype, D),
-// in bytes (0 for an unsupported case)
-extern "C" long long k2_smem_bytes(int dtype, int D) {
+// dynamic shared memory of one block of the kernel that runs (dtype, D,
+// Dv), in bytes (0 for an unsupported case)
+extern "C" long long k2_smem_bytes(int dtype, int D, int Dv) {
+  if (dtype == 1 && D == 192 && Dv == 128)
+    return k2::WLayout<192, 128>::kBytes;
+  if (D != Dv) return 0;
   if (dtype == 0) return k2::simt_smem<float>(D);
   if (dtype != 1) return 0;
   switch (D) {
-    case 64: return k2::WLayout<64>::kBytes;
-    case 128: return k2::WLayout<128>::kBytes;
-    case 256: return k2::WLayout<256>::kBytes;
+    case 64: return k2::WLayout<64, 64>::kBytes;
+    case 128: return k2::WLayout<128, 128>::kBytes;
+    case 256: return k2::WLayout<256, 256>::kBytes;
   }
   return k2::simt_smem<__nv_bfloat16>(D);
 }

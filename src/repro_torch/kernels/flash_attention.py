@@ -1,44 +1,49 @@
 """K2: flash attention forward on the card.
 
 ``flash_attention(q, k, v, ...)`` computes softmax attention over
-q ``(B, Sq, H, D)`` and k/v ``(B, Skv, KV, D)`` in the JAX layout: GQA (kv
-head ``h // (H/KV)``), causal masking, a sliding window
+q ``(B, Sq, H, D)``, k ``(B, Skv, KV, D)`` and v ``(B, Skv, KV, Dv)`` in the
+JAX layout: GQA (kv head ``h // (H/KV)``), causal masking, a sliding window
 (``qpos - kpos < window``), a tanh logit softcap and a scale (``1/sqrt(D)``
-when 0).  It returns the output in q's dtype and, with ``return_lse``, the
-fp32 log-sum-exp ``(B, Sq, H)`` of every row, which the attention backward
-needs.  On a CUDA tensor it launches a hand-written kernel in
-``csrc/flash_attention.cu`` or raises; on a CPU tensor it runs
+when 0).  It returns the output ``(B, Sq, H, Dv)`` in q's dtype and, with
+``return_lse``, the fp32 log-sum-exp ``(B, Sq, H)`` of every row, which the
+attention backward needs.  On a CUDA tensor it launches a hand-written
+kernel in ``csrc/flash_attention.cu`` or raises; on a CPU tensor it runs
 ``flash_attention_reference``, the plain torch version of the same function.
 
-Which kernel runs is one fixed rule, ``variant_for(dtype, D)``, decided
+Which kernel runs is one fixed rule, ``variant_for(dtype, D, Dv)``, decided
 before any launch:
 
-* bfloat16 with D in (64, 128, 256), every head dim of the repo's attention
-  models, runs ``"wgmma"``: tensor-core tiles (``wgmma``) fed by TMA loads,
-  a producer warpgroup and two consumer warpgroups of 64 q rows per block
+* bfloat16 with D = Dv in (64, 128, 256), every head dim of the repo's GQA
+  models, and (D, Dv) = (192, 128), deepseek-v2's MLA after its per-head K
+  and V are materialized (128 nope + 64 rope dims for q and k, 128 for v),
+  runs ``"wgmma"``: tensor-core tiles (``wgmma``) fed by TMA loads, a
+  producer warpgroup and two consumer warpgroups of 64 q rows per block
   (two q heads of one kv head per block when H/KV is even, so they share
   every K and V tile; else 128 rows of one head).  Its operands must suit
   TMA: a 16-byte-aligned base and 16-byte-multiple strides
   (``tma_strides`` checks them and raises ``ValueError``).
-* float32 at any D, and bfloat16 with D in (16, 32), run ``"simt"``: fp32
-  FMAs on the CUDA cores.  float32 must meet the reference's 2e-5, which the
-  tensor cores (TF32 for fp32 inputs, about 3 digits) cannot; D 16 and 32
-  occur only in the reduced test configurations.
+* float32 at any D = Dv, and bfloat16 with D = Dv in (16, 32), run
+  ``"simt"``: fp32 FMAs on the CUDA cores.  float32 must meet the
+  reference's 2e-5, which the tensor cores (TF32 for fp32 inputs, about 3
+  digits) cannot; D 16 and 32 occur only in the reduced test
+  configurations.
 
-A failed launch of either variant raises; nothing retries on the other or
-on the plain version.  ``launches`` counts every launch and
-``launches_by_variant`` each variant's.
+Any other (dtype, D, Dv) raises ``ValueError`` naming it, f32 at (192, 128)
+included (no path on the card runs MLA in f32).  A failed launch of either
+variant raises; nothing retries on the other or on the plain version.
+``launches`` counts every launch and ``launches_by_variant`` each
+variant's.
 
 The kernels replace the JAX reference's Pallas TPU kernel
 ``repro/kernels/flash_attention.py::_kernel``.  The bound on an H100 is
-operations (``bound_ms``): 4 * D FLOPs per unmasked (q, k) pair and head at
-the dense tensor-core rate of the input type, against the bytes of q, k, v,
-the output and lse at 3.35 TB/s.  The library call that computes the same
-function is ``torch.nn.attention.flex_attention`` under ``torch.compile``
-with a tanh ``score_mod`` and a causal/window block mask; with softcap 0,
-``torch.nn.functional.scaled_dot_product_attention`` with the same mask is
-another.  ``chip_smoke.py`` times both beside the kernel; the port calls
-neither.
+operations (``bound_ms``): 2 (D + Dv) FLOPs per unmasked (q, k) pair and
+head at the dense tensor-core rate of the input type, against the bytes of
+q, k, v, the output and lse at 3.35 TB/s.  The library call that computes
+the same function is ``torch.nn.attention.flex_attention`` under
+``torch.compile`` with a tanh ``score_mod`` and a causal/window block mask;
+with softcap 0, ``torch.nn.functional.scaled_dot_product_attention`` with
+the same mask is another (at MLA's head dims, with ``is_causal``).
+``chip_smoke.py`` times them beside the kernel; the port calls neither.
 """
 from __future__ import annotations
 
@@ -59,6 +64,9 @@ NEG_INF = -1.0e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 #: bf16 head dims of the wgmma variant (``flash_fwd_wgmma`` in the source)
 WGMMA_HEAD_DIMS = (64, 128, 256)
+#: the one (D, Dv) pair with D != Dv, bf16 on the wgmma variant: MLA's
+#: materialized attention (deepseek-v2: 128 nope + 64 rope, v 128)
+MLA_HEAD_DIMS = (192, 128)
 VARIANTS = ("wgmma", "simt")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -82,16 +90,19 @@ def unmasked_pairs(Sq: int, Skv: int, causal: bool, window: int,
 
 def bound_ms(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
              window: int = 0, q_offset: int = 0,
-             kv_len: Optional[int] = None) -> Tuple[float, str]:
+             kv_len: Optional[int] = None,
+             Dv: Optional[int] = None) -> Tuple[float, str]:
     """Least time an H100 could take for this call, and what bounds it:
-    ``max(FLOPs / peak, bytes / 3.35 TB/s)`` with 4 * D FLOPs per unmasked
-    pair and head, and q, k, v, out and lse each moved once."""
+    ``max(FLOPs / peak, bytes / 3.35 TB/s)`` with 2 (D + Dv) FLOPs per
+    unmasked pair and head (Q K^T and P V), and q, k, v, out and lse each
+    moved once.  ``Dv`` is v's head dim (D when None)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    flops = 4.0 * D * B * H * unmasked_pairs(Sq, Skv, causal, window,
-                                             q_offset, kv_len)
+    Dv = D if Dv is None else Dv
+    flops = 2.0 * (D + Dv) * B * H * unmasked_pairs(
+        Sq, Skv, causal, window, q_offset, kv_len)
     size = q.element_size()
-    nbytes = (2 * B * Sq * H * D + 2 * B * Skv * KV * D) * size \
+    nbytes = (B * Sq * H * (D + Dv) + B * Skv * KV * (D + Dv)) * size \
         + B * Sq * H * 4
     t_ops = flops / PEAK_FLOPS[q.dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -99,14 +110,23 @@ def bound_ms(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def variant_for(dtype: torch.dtype, D: int) -> str:
-    """The kernel that runs q/k/v of ``dtype`` with head dim ``D``:
-    ``"wgmma"`` for bfloat16 at D in ``WGMMA_HEAD_DIMS``, else ``"simt"``
-    (module docstring).  Raises on a type or head dim K2 does not take."""
+def variant_for(dtype: torch.dtype, D: int, Dv: Optional[int] = None
+                ) -> str:
+    """The kernel that runs q/k of ``dtype`` with head dim ``D`` and v with
+    head dim ``Dv`` (D when None): ``"wgmma"`` for bfloat16 at D = Dv in
+    ``WGMMA_HEAD_DIMS`` or at ``MLA_HEAD_DIMS``, else ``"simt"`` (module
+    docstring).  Raises on a type or head dims K2 does not take."""
     if dtype not in DTYPE_CODES:
         raise TypeError(f"K2 takes float32 or bfloat16, got {dtype}")
+    if Dv is not None and Dv != D:
+        if dtype == torch.bfloat16 and (D, Dv) == MLA_HEAD_DIMS:
+            return "wgmma"
+        raise ValueError(f"K2 takes head dims (D, Dv) = {MLA_HEAD_DIMS} "
+                         f"with D != Dv, in bfloat16 only; got ({D}, {Dv}) "
+                         f"in {dtype}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"K2 takes head dims {HEAD_DIMS}, got {D}")
+        raise ValueError(f"K2 takes head dims D = Dv in {HEAD_DIMS} or (D, "
+                         f"Dv) = {MLA_HEAD_DIMS}; got ({D}, {D})")
     return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS \
         else "simt"
 
@@ -210,20 +230,22 @@ class FlashAttention:
                 + [i, i, ctypes.c_float, ctypes.c_float, i, i, i, p])
             lib.k2_flash_attention.restype = ctypes.c_int
             lib.k2_flash_attention_wgmma.argtypes = (
-                [p] * 5 + [i] * 6 + [ll] * 12
+                [p] * 5 + [i] * 7 + [ll] * 12
                 + [i, i, ctypes.c_float, ctypes.c_float, i, i, p])
             lib.k2_flash_attention_wgmma.restype = ctypes.c_int
-            lib.k2_smem_bytes.argtypes = [i, i]
+            lib.k2_smem_bytes.argtypes = [i, i, i]
             lib.k2_smem_bytes.restype = ll
             lib.k2_error_string.argtypes = [i]
             lib.k2_error_string.restype = ctypes.c_char_p
             self._lib = lib
         return self._lib
 
-    def smem_bytes(self, dtype: torch.dtype, D: int) -> int:
+    def smem_bytes(self, dtype: torch.dtype, D: int,
+                   Dv: Optional[int] = None) -> int:
         """Dynamic shared memory of one block of the kernel that runs
-        (dtype, D), in bytes."""
-        return int(self.library().k2_smem_bytes(DTYPE_CODES[dtype], D))
+        (dtype, D, Dv), in bytes."""
+        return int(self.library().k2_smem_bytes(
+            DTYPE_CODES[dtype], D, D if Dv is None else Dv))
 
     def __call__(self, q, k, v, *, causal: bool = True, window: int = 0,
                  softcap: float = 0.0, scale: float = 0.0,
@@ -232,8 +254,8 @@ class FlashAttention:
         if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
             raise ValueError("q, k, v must be (B, S, heads, D)")
         B, Sq, H, D = q.shape
-        Skv, KV = k.shape[1], k.shape[2]
-        if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
+        Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+        if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D \
                 or KV == 0 or H % KV:
             raise ValueError(f"shapes q {tuple(q.shape)}, k "
                              f"{tuple(k.shape)}, v {tuple(v.shape)} do not "
@@ -250,19 +272,20 @@ class FlashAttention:
         if k.dtype != q.dtype or v.dtype != q.dtype:
             raise TypeError(f"K2 takes q/k/v of one type, got {q.dtype}, "
                             f"{k.dtype}, {v.dtype}")
-        variant = variant_for(q.dtype, D)
+        variant = variant_for(q.dtype, D, Dv)
         if any(t.stride(-1) != 1 for t in (q, k, v)):
             raise ValueError("K2 takes tensors whose head dim is contiguous")
         if variant == "wgmma":
             strides = [s for t in (q, k, v) for s in tma_strides(t)]
         else:
             strides = [s for t in (q, k, v) for s in t.stride()[:3]]
-        out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+        out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
         lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
         kv_len = Skv if kv_len is None else min(int(kv_len), Skv)
         lib = self.library()
+        head = [D, Dv] if variant == "wgmma" else [D]
         args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), B, Sq, Skv, H, KV, D, *strides,
+                lse.data_ptr(), B, Sq, Skv, H, KV, *head, *strides,
                 *out.stride()[:3], int(causal), int(window), float(softcap),
                 float(scale or 1.0 / math.sqrt(D)), int(q_offset), kv_len]
         with torch.cuda.device(q.device):
@@ -275,7 +298,8 @@ class FlashAttention:
         if code != 0:
             msg = lib.k2_error_string(code).decode()
             raise RuntimeError(f"K2 ({variant}) launch on q {tuple(q.shape)} "
-                               f"k {tuple(k.shape)} {q.dtype} failed: error "
+                               f"k {tuple(k.shape)} v {tuple(v.shape)} "
+                               f"{q.dtype} failed: error "
                                f"{code} ({msg})")
         self.launches += 1
         self.launches_by_variant[variant] += 1

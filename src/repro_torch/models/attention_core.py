@@ -8,9 +8,11 @@ function.  It saves only ``(q, k, v, out, lse)``, as the reference's ``_fwd``
 does.  Its backward is ``_backward``, the reference's blocked recomputation
 in plain torch: the reference has no backward kernel either, only XLA code.
 
-Shapes follow the reference: q ``(B, Sq, H, D)``, k/v ``(B, Skv, KV, D)``;
-this port keeps ``lse`` as ``(B, Sq, H)`` (the reference's ``(B, Sq, KV, G)``
-flattened, head ``h = kv * G + g``).  Only the unfolded schedule is ported:
+Shapes follow the reference: q ``(B, Sq, H, D)``, k ``(B, Skv, KV, D)`` and
+v ``(B, Skv, KV, Dv)``, the output ``(B, Sq, H, Dv)`` (Dv differs from D in
+MLA: 192 and 128 at deepseek-v2's widths, which K2 takes); this port keeps
+``lse`` as ``(B, Sq, H)`` (the reference's ``(B, Sq, KV, G)`` flattened, head
+``h = kv * G + g``).  Only the unfolded schedule is ported:
 ``AttnSpec(folded=True)`` raises ``NotImplementedError``.  The blocks of
 ``AttnSpec`` tile the backward only (K2 tiles the forward itself); its loop
 skips (q, kv) block pairs that the causal mask or the window empties wholly,

@@ -6,10 +6,18 @@ into a numpy array by the caller (``np.asarray``; bf16 leaves arrive as
 ``ml_dtypes.bfloat16``), and returns this port's parameters: the same names,
 with the reference's stacked layer axes split into one dict per layer
 (``(L, ...)`` -> ``blocks[i]``; gemma2's ``(L/2, 2, ...)`` -> ``blocks[2i+j]``;
-a mamba2 layer is ``{"ln", "mamba"}``).  Every leaf keeps its reference
-dtype: mamba2's f32 ``A_log``, ``D`` and ``dt_bias`` stay f32 under bf16
+a mamba2 layer is ``{"ln", "mamba"}``).  The ``moe`` family's two layouts:
+deepseek's ``dense0 (first_dense, ...)`` and ``blocks (L - first_dense,
+...)`` become layers ``0 .. first_dense - 1`` and the rest; llama4's
+``pair_dense (L/2, ...)`` and ``pair_moe (L/2, ...)`` become layers ``2i``
+and ``2i + 1``.  Every leaf keeps its reference dtype: mamba2's f32
+``A_log``, ``D`` and ``dt_bias`` and the MoE router stay f32 under bf16
 parameters, and bf16 goes through float32, so its values are carried bit for
 bit.  Nothing of JAX is imported: the tree is plain dicts of numpy arrays.
+
+The parameters land on ``device``; ``None`` means the card
+(``core.service.resolve_device``), which raises without one unless the
+caller asks for ``"cpu"``.
 """
 from __future__ import annotations
 
@@ -17,6 +25,11 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.core.service import resolve_device
+
+#: the reference's stacked layer groups of the ``moe`` family
+MOE_GROUPS = ("dense0", "blocks", "pair_dense", "pair_moe")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -33,23 +46,36 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _layers(sub, n: int, device, pair: bool = False):
+    """The first ``n`` layers of a stacked group as one dict each (``pair``:
+    gemma2's ``(L/2, 2, ...)`` stacking)."""
+    def take(a, i):
+        a = np.asarray(a)
+        return a[i // 2, i % 2] if pair else a[i]
+    return [_map(sub, lambda a, i=i: _tensor(take(a, i), device))
+            for i in range(n)]
+
+
 def params_from_reference(tree: Dict[str, Any], cfg, device=None
                           ) -> Dict[str, Any]:
     """See the module docstring.  ``cfg`` is the port's ``ModelConfig`` of
-    the same architecture (a ``dense``/``vlm``/``audio``/``ssm`` family)."""
-    device = torch.device("cpu" if device is None else device)
-    out: Dict[str, Any] = {}
-    for key, sub in tree.items():
-        if key != "blocks":
-            out[key] = _map(sub, lambda a: _tensor(a, device))
-            continue
-        L = cfg.num_layers
-        if cfg.local_global:
-            take = lambda a, i: np.asarray(a)[i // 2, i % 2]  # noqa: E731
-        else:
-            take = lambda a, i: np.asarray(a)[i]              # noqa: E731
-        out["blocks"] = [_map(sub, lambda a, i=i: _tensor(take(a, i), device))
-                         for i in range(L)]
+    the same architecture (a ``dense``/``vlm``/``audio``/``ssm``/``moe``
+    family)."""
+    device = resolve_device(device)
+    L = cfg.num_layers
+    groups = MOE_GROUPS if cfg.is_moe else ("blocks",)
+    out: Dict[str, Any] = {key: _map(sub, lambda a: _tensor(a, device))
+                           for key, sub in tree.items() if key not in groups}
+    if not cfg.is_moe:
+        out["blocks"] = _layers(tree["blocks"], L, device, cfg.local_global)
+    elif cfg.moe_every == 2:
+        dense = _layers(tree["pair_dense"], L // 2, device)
+        moe = _layers(tree["pair_moe"], L // 2, device)
+        out["blocks"] = [b for pair in zip(dense, moe) for b in pair]
+    else:
+        nd = cfg.first_dense
+        out["blocks"] = (_layers(tree["dense0"], nd, device) if nd else []) \
+            + _layers(tree["blocks"], L - nd, device)
     return out
 
 
@@ -64,7 +90,15 @@ def params_to_numpy(params, cfg) -> Dict[str, Any]:
         if key == "blocks":
             continue
         out[key] = _map(sub, f32)
-    stacked = _stack([_map(b, f32) for b in params["blocks"]])
+    blocks = [_map(b, f32) for b in params["blocks"]]
+    if cfg.is_moe and cfg.moe_every == 2:
+        out["pair_dense"] = _stack(blocks[0::2])
+        out["pair_moe"] = _stack(blocks[1::2])
+        return out
+    if cfg.is_moe and cfg.first_dense:
+        out["dense0"] = _stack(blocks[:cfg.first_dense])
+        blocks = blocks[cfg.first_dense:]
+    stacked = _stack(blocks)
     if cfg.local_global:
         stacked = _map(stacked, lambda a: a.reshape(
             (a.shape[0] // 2, 2) + a.shape[1:]))

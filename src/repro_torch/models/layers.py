@@ -28,14 +28,32 @@ def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+#: above this many fp32 bytes, ``dense_init`` draws slices of the leading
+#: axis one after another, so its fp32 draw never holds a whole tensor
+#: (llama4-maverick's experts ``wi`` would take 43 GB in fp32 on the card)
+INIT_SLICE_BYTES = 1 << 32
+
+
+def _trunc_normal(gen, shape, std: float, dtype, device) -> Tensor:
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w.mul_(std).to(dtype)
+
+
 def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
                scale: float = 1.0, device=None) -> Tensor:
     """Truncated-normal (+-2 sigma) fan-in init, drawn in fp32."""
+    shape = tuple(shape)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale / math.sqrt(fan_in)
-    w = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * std).to(dtype)
+    if math.prod(shape) * 4 <= INIT_SLICE_BYTES:
+        return _trunc_normal(gen, shape, std, dtype, device)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    step = max(1, INIT_SLICE_BYTES // (4 * math.prod(shape[1:])))
+    for i in range(0, shape[0], step):
+        part = out[i:i + step]
+        part.copy_(_trunc_normal(gen, part.shape, std, dtype, device))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Model assembly for the ``dense``, ``vlm``, ``audio`` and ``ssm`` families,
-gemma2's local/global layer pairs included (port of the reference's
-``repro/models/transformer.py``).
+"""Model assembly for the ``dense``, ``vlm``, ``audio``, ``ssm`` and ``moe``
+families, gemma2's local/global layer pairs and MLA attention included (port
+of the reference's ``repro/models/transformer.py``).
 
 Parameters are nested dicts of tensors with the reference's names.  The
 reference stacks layers on a leading axis and runs them with ``lax.scan``;
@@ -8,12 +8,19 @@ here ``params["blocks"]`` is a list with one dict per layer, in layer order
 (gemma2's pair ``i`` is layers ``2i``, local, and ``2i + 1``, global), and a
 Python loop runs them.  ``models.convert.params_from_reference`` carries the
 reference's own parameters across.  An ``ssm`` layer (mamba2) is
-``{"ln", "mamba"}`` and runs K3 through ``models.ssm.apply_mamba2``.
+``{"ln", "mamba"}`` and runs K3 through ``models.ssm.apply_mamba2``.  A
+``moe`` layer is ``{"attn", "mlp"}`` (dense) or ``{"attn", "moe"}``, in one
+of the reference's two layouts (``moe_layer``): deepseek's
+``first_dense`` dense layers of width ``dense_d_ff`` and then MoE, or
+llama4's (dense, MoE) pairs (``moe_every = 2``).
 
-Not ported yet (each raises ``NotImplementedError``): the ``moe`` and
-``hybrid`` families and MLA attention, remat other than ``"none"`` and
-balanced causal folding (ROADMAP Queue 1 item 1), and the ``dist`` context
-(Queue 1 item 2).
+``Transformer.init`` and ``init_cache`` put their tensors on ``device``;
+``None`` means the card (``core.service.resolve_device``), and they raise
+without one unless the caller asks for ``"cpu"``.
+
+Not ported yet (each raises ``NotImplementedError``): the ``hybrid`` family,
+remat other than ``"none"`` and balanced causal folding (ROADMAP Queue 1
+item 1), and the ``dist`` context (Queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -21,13 +28,15 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch.core.service import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 Tensor = torch.Tensor
 
-FAMILIES = ("dense", "vlm", "audio", "ssm")
+FAMILIES = ("dense", "vlm", "audio", "ssm", "moe")
 
 
 def _not_ported(what: str, item: int = 1) -> NotImplementedError:
@@ -44,7 +53,24 @@ def attn_spec(cfg, window: int, folded: bool = False) -> A.AttnSpec:
 # Blocks
 # ---------------------------------------------------------------------------
 
-def init_attn_block(gen, cfg, device=None):
+def moe_layer(cfg, i: int) -> bool:
+    """Whether layer ``i`` of a ``moe``-family model is an MoE layer: the
+    odd layers of llama4's (dense, MoE) pairs, else every layer past
+    deepseek's ``first_dense``."""
+    if cfg.moe_every == 2:
+        return i % 2 == 1
+    return i >= cfg.first_dense
+
+
+def n_moe_layers(cfg) -> int:
+    """The MoE layers the aux loss averages over (the reference's
+    ``n_moe``)."""
+    if cfg.moe_every > 1:
+        return cfg.num_layers // cfg.moe_every
+    return cfg.num_layers - cfg.first_dense
+
+
+def init_attn_block(gen, cfg, device=None, d_ff=None, moe=False):
     dt = L.dtype_of(cfg.param_dtype)
     p = {"ln1": L.init_norm(cfg.norm, cfg.d_model, dt, device),
          "ln2": L.init_norm(cfg.norm, cfg.d_model, dt, device)}
@@ -55,13 +81,23 @@ def init_attn_block(gen, cfg, device=None):
         p["attn"] = A.init_mla(gen, cfg, dt, device)
     else:
         p["attn"] = A.init_gqa(gen, cfg, dt, device)
-    p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, cfg.use_bias,
-                          dt, device)
+    if moe:
+        p["moe"] = M.init_moe(gen, cfg, dt, device)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, d_ff or cfg.d_ff, cfg.mlp,
+                              cfg.use_bias, dt, device)
     return p
 
 
+def _ffn(bp, h, cfg):
+    """The block's MLP or MoE: (output, MoE stats or None)."""
+    if "moe" in bp:
+        return M.apply_moe(bp["moe"], h, cfg)
+    return L.apply_mlp(bp["mlp"], h, cfg.mlp), None
+
+
 def apply_attn_block(bp, x, cfg, positions, spec, impl=A.blocked_attention):
-    """Returns (x, (k, v))."""
+    """Returns (x, MoE stats or None, (k, v)-like cache entries)."""
     h = L.apply_norm(bp["ln1"], x, cfg.norm, cfg.norm_eps)
     if cfg.attention == "mla":
         a, kv = A.apply_mla(bp["attn"], h, cfg, positions, spec, impl)
@@ -71,26 +107,30 @@ def apply_attn_block(bp, x, cfg, positions, spec, impl=A.blocked_attention):
         a = L.apply_norm(bp["ln1p"], a, cfg.norm, cfg.norm_eps)
     x = x + a
     h = L.apply_norm(bp["ln2"], x, cfg.norm, cfg.norm_eps)
-    m = L.apply_mlp(bp["mlp"], h, cfg.mlp)
+    m, stats = _ffn(bp, h, cfg)
     if cfg.post_norms:
         m = L.apply_norm(bp["ln2p"], m, cfg.norm, cfg.norm_eps)
-    return x + m, kv
+    return x + m, stats, kv
 
 
 def decode_attn_block(bp, x, cfg, pos, cache, spec, ring=False):
+    """One token through the block; the layer's cache is written in
+    place."""
     h = L.apply_norm(bp["ln1"], x, cfg.norm, cfg.norm_eps)
     if cfg.attention == "mla":
-        raise _not_ported("MLA decode")
-    a, kc, vc = A.gqa_decode(bp["attn"], h, cfg, pos, cache["k"],
-                             cache["v"], spec, ring=ring)
+        a, _, _ = A.mla_decode(bp["attn"], h, cfg, pos, cache["latent"],
+                               cache["krope"], spec)
+    else:
+        a, _, _ = A.gqa_decode(bp["attn"], h, cfg, pos, cache["k"],
+                               cache["v"], spec, ring=ring)
     if cfg.post_norms:
         a = L.apply_norm(bp["ln1p"], a, cfg.norm, cfg.norm_eps)
     x = x + a
     h = L.apply_norm(bp["ln2"], x, cfg.norm, cfg.norm_eps)
-    m = L.apply_mlp(bp["mlp"], h, cfg.mlp)
+    m, _ = _ffn(bp, h, cfg)
     if cfg.post_norms:
         m = L.apply_norm(bp["ln2p"], m, cfg.norm, cfg.norm_eps)
-    return x + m, {"k": kc, "v": vc}
+    return x + m, cache
 
 
 def init_mamba_block(gen, cfg, device=None):
@@ -134,9 +174,10 @@ class Transformer:
 
     # -- init ---------------------------------------------------------------
     def init(self, seed: int = 0, device=None) -> Dict[str, Any]:
-        """Fresh parameters from ``torch.Generator(seed)`` on ``device``."""
+        """Fresh parameters from ``torch.Generator(seed)`` on ``device``
+        (``None``: the card; module docstring)."""
         cfg = self.cfg
-        device = torch.device("cpu" if device is None else device)
+        device = resolve_device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
         dt = L.dtype_of(cfg.param_dtype)
@@ -153,10 +194,18 @@ class Transformer:
                                          device=device)
         if cfg.local_global and cfg.num_layers % 2:
             raise ValueError("local/global pairs need an even layer count")
-        init_block = init_mamba_block if cfg.family == "ssm" \
-            else init_attn_block
-        p["blocks"] = [init_block(gen, cfg, device)
-                       for _ in range(cfg.num_layers)]
+        if cfg.family == "ssm":
+            p["blocks"] = [init_mamba_block(gen, cfg, device)
+                           for _ in range(cfg.num_layers)]
+        elif cfg.family == "moe":
+            p["blocks"] = [
+                init_attn_block(gen, cfg, device, moe=True)
+                if moe_layer(cfg, i) else
+                init_attn_block(gen, cfg, device, d_ff=cfg.dense_d_ff)
+                for i in range(cfg.num_layers)]
+        else:
+            p["blocks"] = [init_attn_block(gen, cfg, device)
+                           for _ in range(cfg.num_layers)]
         return p
 
     # -- embedding ------------------------------------------------------------
@@ -182,8 +231,9 @@ class Transformer:
 
     # -- forward (train / prefill) -------------------------------------------
     def forward(self, p, batch, collect_cache: bool = False):
-        """Returns (hidden (B,S,d), aux_stats (None for these families),
-        per-layer [(k, v)] or None; an ``ssm`` model collects no cache, as
+        """Returns (hidden (B,S,d), the MoE stats (2E,) summed over the MoE
+        layers (None for the other families), per-layer [(k, v)] (MLA:
+        [(latent, k_rope)]) or None; an ``ssm`` model collects no cache, as
         in the reference)."""
         cfg = self.cfg
         x = self._embed_inputs(p, batch)
@@ -193,14 +243,16 @@ class Transformer:
             x = L.apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
             return x, None, ([] if collect_cache else None)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        kvs = []
+        kvs, stats_sum = [], None
         for bp, spec in zip(p["blocks"], self.layer_specs()):
-            x, kv = apply_attn_block(bp, x, cfg, positions, spec,
-                                     self.attn_impl)
+            x, stats, kv = apply_attn_block(bp, x, cfg, positions, spec,
+                                            self.attn_impl)
+            if stats is not None:
+                stats_sum = stats if stats_sum is None else stats_sum + stats
             if collect_cache:
                 kvs.append(kv)
         x = L.apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
-        return x, None, (kvs if collect_cache else None)
+        return x, stats_sum, (kvs if collect_cache else None)
 
     def logits(self, p, hidden):
         cfg = self.cfg
@@ -210,10 +262,15 @@ class Transformer:
     # -- losses ---------------------------------------------------------------
     def loss(self, p, batch):
         cfg = self.cfg
-        hidden, _, _ = self.forward(p, batch)
+        hidden, stats, _ = self.forward(p, batch)
         logits = self.logits(p, hidden)
-        nll, ntok = L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        labels = batch["labels"]
+        nll, ntok = L.cross_entropy(logits, labels, cfg.vocab_size)
         aux = torch.zeros((), device=nll.device)
+        if stats is not None and cfg.is_moe:
+            total_tokens = labels.shape[0] * labels.shape[1] \
+                * max(1, n_moe_layers(cfg))
+            aux = M.aux_loss_from_stats(stats, cfg, float(total_tokens))
         return nll + aux, {"nll": nll, "aux": aux, "ntok": ntok}
 
     # -- decode ---------------------------------------------------------------
@@ -226,15 +283,24 @@ class Transformer:
 
     def init_cache(self, batch: int, max_len: int, device=None
                    ) -> List[Dict[str, Tensor]]:
-        """One ``{"k", "v"}`` cache ``(B, len, KV, D)`` per layer.  gemma2's
-        global layers hold ``max_len``; a sliding-window model's layers hold
-        the window (a ring) once ``max_len`` exceeds it.  An ``ssm`` layer
-        holds its conv windows and its f32 state instead
+        """One ``{"k", "v"}`` cache ``(B, len, KV, D)`` per layer, on
+        ``device`` (``None``: the card).  gemma2's global layers hold
+        ``max_len``; a sliding-window model's layers hold the window (a
+        ring) once ``max_len`` exceeds it.  An MLA layer holds
+        ``{"latent" (B, max_len, kv_lora_rank), "krope" (B, max_len,
+        qk_rope_dim)}``; an ``ssm`` layer its conv windows and its f32 state
         (``ssm.init_ssm_cache``)."""
         cfg = self.cfg
         dt = L.dtype_of(cfg.dtype)
+        device = resolve_device(device)
         if cfg.family == "ssm":
             return [S.init_ssm_cache(cfg, batch, dt, device)
+                    for _ in range(cfg.num_layers)]
+        if cfg.attention == "mla":
+            return [{"latent": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                           dtype=dt, device=device),
+                     "krope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                          dtype=dt, device=device)}
                     for _ in range(cfg.num_layers)]
         kvl = self.kv_len(max_len)
         shape = (batch, kvl, cfg.num_kv_heads, cfg.head_dim)

@@ -102,12 +102,31 @@ ATTENTION_ARCHS = ["gemma2-2b", "granite-34b", "phi3-medium-14b",
                    "internvl2-1b", "musicgen-medium"]
 
 
-@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+@pytest.mark.parametrize("arch", ATTENTION_ARCHS + ["deepseek-v2-lite-16b"])
 def test_model_qkv_in_bf16_takes_the_wgmma_variant(arch):
     """The q/k/v that the port's attention block hands K2 (projections and
-    RoPE at the model's heads and head dim, bf16) go to the wgmma kernel,
-    and their layouts pass its TMA check."""
+    RoPE at the model's heads and head dim, bf16; MLA's materialized q/k at
+    192 and v at 128) go to the wgmma kernel, and their layouts pass its
+    TMA check."""
     cfg = ARCHS[arch]
+    if cfg.attention == "mla":
+        seen = []
+
+        def impl(q, k, v, spec):
+            seen.append((q, k, v, spec))
+            return torch.zeros(v.shape, dtype=v.dtype)
+        g = torch.Generator().manual_seed(0)
+        p = A.init_mla(g, cfg.with_overrides(d_model=32), torch.bfloat16)
+        x = torch.randn((2, 8, 32), generator=g).bfloat16()
+        A.apply_mla(p, x, cfg, torch.arange(8)[None], A.AttnSpec(), impl)
+        (q, k, v, spec), = seen
+        assert spec.scale == 192 ** -0.5
+        assert (q.shape[-1], v.shape[-1]) == (192, 128)
+        assert variant_for(q.dtype, 192, 128) == "wgmma"
+        for t in (q, k, v):
+            assert t.dtype == torch.bfloat16
+            assert tma_strides(t)[1:] == (16 * t.shape[-1], t.shape[-1])
+        return
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = torch.Generator().manual_seed(0)
     width = 32                     # the model's width does not enter

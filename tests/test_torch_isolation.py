@@ -48,6 +48,8 @@ def test_sources_name_no_jax_or_reference_import():
     files = sorted((SRC / "repro_torch").rglob("*.py"))
     files.append(SRC.parent / "chip_smoke.py")
     assert len(files) > 20
+    assert SRC / "repro_torch/models/moe.py" in files
+    assert SRC / "repro_torch/models/attention.py" in files
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, (f, hits)
@@ -84,6 +86,26 @@ def test_online_entry_points_without_cuda_raise_unless_cpu_is_asked(
     mgr.close()
     runner = ScenarioRunner(SimConfig(n_workers=4), [], device="cpu")
     assert runner.pipeline.service.summarize_backend.name == "torch"
+
+
+def test_model_init_without_cuda_raises_unless_cpu_is_asked(monkeypatch):
+    """``Transformer.init``, ``Transformer.init_cache`` and
+    ``params_from_reference`` build on the card when no device is given,
+    and raise on a host without one."""
+    import numpy as np
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.transformer import Transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = Transformer(reduced(ARCHS["deepseek-v2-lite-16b"]))
+    tree = {"embed": {"table": np.zeros((4, 2), np.float32)}}
+    for make in (lambda: model.init(0), lambda: model.init_cache(2, 8),
+                 lambda: params_from_reference(tree, model.cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert model.init(0, device="cpu")["embed"]["table"].device.type == "cpu"
+    cache = model.init_cache(2, 8, device="cpu")
+    assert cache[0]["latent"].device.type == "cpu"
 
 
 @pytest.mark.gpu

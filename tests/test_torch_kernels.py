@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, VARIANTS,
-                                                 flash_attention,
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, MLA_HEAD_DIMS,
+                                                 VARIANTS, flash_attention,
                                                  flash_attention_reference,
                                                  tma_strides, variant_for)
 from repro_torch.kernels.pattern_summary import VARIANTS as K1_VARIANTS
@@ -125,6 +125,21 @@ def test_k2_variant_rule_rejects_what_k2_does_not_take():
             variant_for(dtype, 64)
 
 
+def test_k2_variant_rule_at_mla_head_dims():
+    """q/k at 192 with v at 128 (deepseek-v2's materialized MLA) runs the
+    wgmma kernel in bf16; f32 there, and every other pair with D != Dv,
+    raise ValueError naming the pair."""
+    assert MLA_HEAD_DIMS == (192, 128)
+    assert variant_for(torch.bfloat16, 192, 128) == "wgmma"
+    assert variant_for(torch.bfloat16, 128, 128) == "wgmma"
+    assert variant_for(torch.float32, 64, 64) == "simt"
+    for dtype, D, Dv in ((torch.float32, 192, 128), (torch.bfloat16, 128, 64),
+                         (torch.bfloat16, 192, 192), (torch.bfloat16, 24, 16),
+                         (torch.bfloat16, 128, 192)):
+        with pytest.raises(ValueError, match=f"\\({D}, {Dv}\\)"):
+            variant_for(dtype, D, Dv)
+
+
 def test_tma_strides_of_dense_fused_and_degenerate_layouts():
     dense = torch.zeros((2, 64, 8, 64), dtype=torch.bfloat16)
     assert tma_strides(dense) == (64 * 8 * 64, 8 * 64, 64)
@@ -134,6 +149,11 @@ def test_tma_strides_of_dense_fused_and_degenerate_layouts():
     one = torch.zeros((1, 10, 1, 128), dtype=torch.bfloat16)
     assert tma_strides(one.as_strided(one.shape, (3, 128, 5, 1))) == \
         (10 * 128, 128, 128)
+    # MLA's concatenated q/k (384-byte rows) and its v (256-byte rows)
+    qk = torch.zeros((4, 48, 16, 192), dtype=torch.bfloat16)
+    assert tma_strides(qk) == (48 * 16 * 192, 16 * 192, 192)
+    v = torch.zeros((4, 48, 16, 128), dtype=torch.bfloat16)
+    assert tma_strides(v) == (48 * 16 * 128, 16 * 128, 128)
 
 
 @pytest.mark.parametrize("offset,strides", [
@@ -362,6 +382,38 @@ def test_k2_matches_plain_version_on_card(dtype, tol):
         assert float((lse - ref_lse).abs().max()) < 1e-3, i
         if dtype == torch.bfloat16:
             assert _bf16_within_limits(out, ref, lse, ref_lse), i
+
+
+#: (B, S, causal, options) of K2 at MLA's (192, 128), 16 heads: the serve
+#: forward's 4 x 48 tokens, a length that is no multiple of the 64-row kv
+#: tile, and an offset cache read
+K2_MLA_CASES = [(4, 48, {}), (1, 200, {}), (2, 130, dict(causal=False)),
+                (1, 300, dict(window=100))]
+
+
+@pytest.mark.gpu
+def test_k2_at_mla_head_dims_matches_plain_version_on_card():
+    """bf16 q/k (B, S, 16, 192) and v (B, S, 16, 128) on the wgmma kernel,
+    the output (B, S, 16, 128) within one bf16 step of the plain version
+    and lse within 1e-3; f32 at those dims raises before any launch."""
+    _cuda()
+    for i, (B, S, kw) in enumerate(K2_MLA_CASES):
+        g = torch.Generator(device="cuda").manual_seed(40 + i)
+        q, k = (torch.randn((B, S, 16, 192), generator=g, device="cuda")
+                .bfloat16() for _ in range(2))
+        v = torch.randn((B, S, 16, 128), generator=g, device="cuda").bfloat16()
+        kw = dict(kw, scale=192 ** -0.5)
+        before = flash_attention.launches_by_variant["wgmma"]
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        ref, ref_lse = flash_attention_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_variant["wgmma"] == before + 1
+        assert out.shape == (B, S, 16, 128)
+        assert _bf16_within_limits(out, ref, lse, ref_lse), i
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="192, 128"):
+        flash_attention(q.float(), k.float(), v.float())
+    assert flash_attention.launches == before
 
 
 @pytest.mark.gpu

@@ -41,7 +41,7 @@ def _pair(arch, seed=0):
     rparams = rmodel.init(jax.random.PRNGKey(seed))
     tree = jax.tree_util.tree_map(np.asarray, rparams)
     return rcfg, cfg, rmodel, rparams, Transformer(cfg), \
-        params_from_reference(tree, cfg)
+        params_from_reference(tree, cfg, device="cpu")
 
 
 def _batch(cfg, batch=2, seq=SEQ, seed=3):
@@ -67,7 +67,7 @@ def test_params_round_trip_and_layout():
         tree["blocks"]["attn"]["wq"][0, 1])
     assert params["embed"]["table"].shape == (cfg.padded_vocab, cfg.d_model)
     # the port's own init makes the same names and shapes
-    own = model.init(seed=1)
+    own = model.init(seed=1, device="cpu")
     assert [(p, tuple(t.shape)) for p, t in param_leaves(own)] == \
         [(p, tuple(t.shape)) for p, t in param_leaves(params)]
 
@@ -79,7 +79,7 @@ def test_bf16_leaves_carry_bit_for_bit():
         num_layers=2, d_model=64, vocab_size=256, d_ff=128, head_dim=16)
     rparams = RTransformer(rcfg).init(jax.random.PRNGKey(2))
     tree = jax.tree_util.tree_map(np.asarray, rparams)
-    params = params_from_reference(tree, cfg)
+    params = params_from_reference(tree, cfg, device="cpu")
     assert params["embed"]["table"].dtype == torch.bfloat16
     np.testing.assert_array_equal(
         params["blocks"][1]["mlp"]["wi"].float().numpy(),
@@ -135,7 +135,7 @@ def test_adamw_update_matches_reference():
             jax.tree_util.tree_map(np.asarray, rparams))
         rparams, rstate, rm = ropt.update(
             jax.tree_util.tree_map(jnp.asarray, gtree), rstate, rparams)
-        grads = params_from_reference(gtree, cfg)
+        grads = params_from_reference(gtree, cfg, device="cpu")
         params, state, m = opt.update(grads, state, params)
         assert abs(float(m["lr"]) - float(rm["lr"])) < 1e-9
         assert abs(float(m["grad_norm"]) - float(rm["grad_norm"])) \
@@ -172,7 +172,7 @@ def test_decode_logits_match_reference(arch, steps, tol):
     toks = np.random.default_rng(4).integers(
         0, cfg.vocab_size, (2, steps)).astype(np.int32)
     rcache = rmodel.init_cache(2, max_len)
-    cache = model.init_cache(2, max_len)
+    cache = model.init_cache(2, max_len, device="cpu")
     assert cache[0]["k"].shape[1] == rmodel.kv_len(max_len)
     step = jax.jit(rmodel.decode_step)
     for pos in range(steps):
@@ -188,11 +188,34 @@ def test_decode_logits_match_reference(arch, steps, tol):
         assert err <= tol * max(1.0, np.abs(rlog).max()), (pos, err)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-7b",
-                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("arch", ["zamba2-7b"])
 def test_families_not_ported_raise(arch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        Transformer(reduced(ARCHS[arch])).init()
+        Transformer(reduced(ARCHS[arch])).init(device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_family_builds_with_the_analytic_parameter_count(arch):
+    """The reduced model builds in the reference's layer layout, and its
+    parameters other than the norm scales (which ``param_counts`` leaves
+    out) number ``param_counts()["total"]``; with them, the reference's."""
+    cfg = reduced(ARCHS[arch])
+    params = Transformer(cfg).init(device="cpu")
+    leaves = list(param_leaves(params))
+    counted = sum(t.numel() for path, t in leaves
+                  if not path.endswith(("scale", "latent_norm")))
+    assert counted == cfg.param_counts()["total"]
+    rcfg = r_reduced(R_ARCHS[arch])
+    shapes = jax.eval_shape(RTransformer(rcfg).init, jax.random.PRNGKey(0))
+    assert sum(t.numel() for _, t in leaves) == sum(
+        int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(shapes))
+    kinds = ["moe" if "moe" in b else "mlp" for b in params["blocks"]]
+    want = ["mlp", "moe"] * (cfg.num_layers // 2) if cfg.moe_every == 2 \
+        else ["mlp"] * cfg.first_dense \
+        + ["moe"] * (cfg.num_layers - cfg.first_dense)
+    assert kinds == want
+    assert params["blocks"][-1]["moe"]["router"].dtype == torch.float32
 
 
 def test_remat_is_not_ported():

@@ -50,7 +50,8 @@ def _engines(batch=2, max_len=32, **sc):
     rcfg, cfg = r_reduced(R_ARCHS["gemma2-2b"]), reduced(ARCHS["gemma2-2b"])
     rparams = RTransformer(rcfg).init(jax.random.PRNGKey(0))
     params = params_from_reference(jax.tree_util.tree_map(np.asarray,
-                                                          rparams), cfg)
+                                                          rparams), cfg,
+                                   device="cpu")
     return (RefEngine(rcfg, rparams, RefServeConfig(batch=batch,
                                                      max_len=max_len, **sc)),
             Engine(cfg, params, ServeConfig(batch=batch, max_len=max_len,

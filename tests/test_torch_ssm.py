@@ -190,8 +190,8 @@ def test_port_init_matches_reference_names_shapes_and_dtypes():
                                         vocab_size=256)
     rparams = RTransformer(rcfg).init(jax.random.PRNGKey(0))
     ref = params_from_reference(jax.tree_util.tree_map(np.asarray, rparams),
-                                cfg)
-    own = Transformer(cfg).init(seed=1)
+                                cfg, device="cpu")
+    own = Transformer(cfg).init(seed=1, device="cpu")
     assert [(p, tuple(t.shape), t.dtype) for p, t in param_leaves(own)] == \
         [(p, tuple(t.shape), t.dtype) for p, t in param_leaves(ref)]
     m = own["blocks"][1]["mamba"]
@@ -214,7 +214,7 @@ def test_converter_round_trip_keeps_every_dtype():
                                         vocab_size=256)
     tree = jax.tree_util.tree_map(
         np.asarray, RTransformer(rcfg).init(jax.random.PRNGKey(2)))
-    params = params_from_reference(tree, cfg)
+    params = params_from_reference(tree, cfg, device="cpu")
     assert len(params["blocks"]) == 3
     assert set(params["blocks"][0]) == {"ln", "mamba"}
     for path, t in param_leaves(params):
@@ -241,7 +241,7 @@ def _pair(seed=0):
     rparams = rmodel.init(jax.random.PRNGKey(seed))
     tree = jax.tree_util.tree_map(np.asarray, rparams)
     return rcfg, cfg, rmodel, rparams, Transformer(cfg), \
-        params_from_reference(tree, cfg)
+        params_from_reference(tree, cfg, device="cpu")
 
 
 def test_loss_and_every_gradient_match_reference():
@@ -274,7 +274,7 @@ def test_decode_logits_match_reference():
     toks = np.random.default_rng(4).integers(
         0, cfg.vocab_size, (2, steps)).astype(np.int32)
     rcache = rmodel.init_cache(2, steps)
-    cache = model.init_cache(2, steps)
+    cache = model.init_cache(2, steps, device="cpu")
     assert cache[0]["state"].dtype == torch.float32
     step = jax.jit(rmodel.decode_step)
     for pos in range(steps):
@@ -303,7 +303,7 @@ def test_prefill_forward_matches_decode():
         hidden, _, cache = model.forward(
             params, {"tokens": torch.from_numpy(toks)}, collect_cache=True)
         full = model.logits(params, hidden)[:, -1]
-        dec = model.init_cache(1, 64)
+        dec = model.init_cache(1, 64, device="cpu")
         for pos in range(64):
             log, dec = model.decode_step(
                 params, dec, {"tokens": torch.from_numpy(
@@ -323,7 +323,7 @@ def test_adamw_takes_mixed_leaves_and_matches_reference():
                                         vocab_size=256)
     rparams = RTransformer(rcfg).init(jax.random.PRNGKey(3))
     tree = jax.tree_util.tree_map(np.asarray, rparams)
-    params = params_from_reference(tree, cfg)
+    params = params_from_reference(tree, cfg, device="cpu")
     oc = dict(lr_peak=1e-2, warmup_steps=1, total_steps=10)
     ropt, opt = RAdamW(ROptConfig(**oc)), AdamW(OptConfig(**oc))
     rstate, state = ropt.init(rparams), opt.init(params)
@@ -332,8 +332,8 @@ def test_adamw_takes_mixed_leaves_and_matches_reference():
         lambda a: rng.standard_normal(a.shape).astype(np.float32), tree)
     rparams, rstate, rm = ropt.update(
         jax.tree_util.tree_map(jnp.asarray, gtree), rstate, rparams)
-    params, state, m = opt.update(params_from_reference(gtree, cfg), state,
-                                  params)
+    params, state, m = opt.update(
+        params_from_reference(gtree, cfg, device="cpu"), state, params)
     assert abs(float(m["grad_norm"]) - float(rm["grad_norm"])) \
         < 1e-6 * float(rm["grad_norm"])
     for got, want in ((state["m"], rstate["m"]), (state["v"], rstate["v"]),
@@ -374,7 +374,7 @@ def test_train_iterations_match_reference_losses():
     _, dc, oc, tc = tiny_train_setup()
     cfg = reduced(ARCHS[ARCH])
     tr = Trainer(cfg, dc, oc, tc, device="cpu")
-    params = params_from_reference(tree, cfg)
+    params = params_from_reference(tree, cfg, device="cpu")
     opt_state = tr.opt.init(params)
     losses = []
     for _ in range(3):

@@ -58,7 +58,7 @@ def test_train_iterations_match_reference_losses():
 
     mc, dc, oc, tc = tiny_train_setup()
     tr = Trainer(mc, dc, oc, tc, device="cpu")
-    params = params_from_reference(tree, mc)
+    params = params_from_reference(tree, mc, device="cpu")
     opt_state = tr.opt.init(params)
     losses = []
     for _ in range(30):
