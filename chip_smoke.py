@@ -7,8 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds kernels K1 (``src/repro_torch/csrc/pattern_summary.cu``), K2
 (``src/repro_torch/csrc/flash_attention.cu``: the wgmma/TMA kernel for bf16
-at D 64-256 and at MLA's q/k 192 with v 128, and the SIMT kernel for f32
-and bf16 at D 16-32) and K3
+at D 64-256 (112 on the tiles of 128) and at MLA's q/k 192 with v 128, and
+the SIMT kernel for f32 and bf16 at D 16-32) and K3
 (``src/repro_torch/csrc/ssd_scan.cu``: four wgmma/TMA passes for bf16 at
 P 64/128, N and chunk multiples of 64 up to 256, and the SIMT kernel for the
 rest) with nvcc for sm_90a, all at once, prints their ptxas reports and how
@@ -30,11 +30,14 @@ these phases, each checked:
    windowed cases with an odd number of q heads per kv head at D 128 and
    256, at the f32 shapes of the reference's kernel tests, and at
    deepseek-v2's MLA (q/k head dim 192, v 128, 16 heads: 2048 tokens, 4 x
-   48, 200); K2 timed beside its bound, its plain version, the library call
-   that computes the same function (``flex_attention`` under
-   ``torch.compile``, with a tanh ``score_mod`` and the causal/window block
-   mask) and, for softcap 0, ``scaled_dot_product_attention``; at MLA's
-   shape beside SDPA with ``is_causal``, naming the backend it picked;
+   48, 200), and at zamba2-7b's shared attention (head dim 112, 32 heads,
+   window 4096: 2048 tokens, 4 x 48, 200, 8192, strided views of one fused
+   projection, f32 on the SIMT kernel; lse within 1e-5); K2 timed beside
+   its bound, its plain version, the library call that computes the same
+   function (``flex_attention`` under ``torch.compile``, with a tanh
+   ``score_mod`` and the causal/window block mask) and, for softcap 0,
+   ``scaled_dot_product_attention``; at MLA's and zamba2's shapes beside
+   SDPA with ``is_causal``, naming the backend it picked;
 4. the full gemma2-2b trainer (26 layers, full width, bf16 with fp32 AdamW
    state) for 5 steps of batch 1 x 2048 tokens through
    ``Trainer.train_iteration``: 26 K2 launches a step, all of the wgmma
@@ -45,7 +48,9 @@ these phases, each checked:
 6. K3 against its plain torch version (f32 on the shapes of the reference's
    kernel tests through the SIMT kernel; bf16 through the wgmma variant at
    mamba2-2.7b's layer shape, at a chunk whose upper-triangle decay
-   overflows float32, and at zamba2-7b's SSM layer), timed beside its bound
+   overflows float32, and at zamba2-7b's SSM layer; and bf16 through the
+   SIMT kernel at the [hybrid serve] forward's chunk of 48), timed beside
+   its bound
    and its plain version, each wgmma pass's device time from one profiled
    call, with the plain SSD backward of one layer;
 7. the full mamba2-2.7b trainer (64 layers, full width, bf16 with f32
@@ -88,7 +93,22 @@ these phases, each checked:
    llama4-maverick (dense, MoE) pair at full width (18.7 B parameters, 128
    experts top-1); ``[moe trainer]``, deepseek-v2-lite-16b at full width cut
    to 4 layers (1 dense + 3 MoE), 5 steps of 1 x 2048 tokens, 4 K2 wgmma
-   launches a step, finite losses and a positive aux loss;
+   launches a step, finite losses and a positive aux loss; then the
+   ``hybrid`` family: ``[hybrid serve]``, the same check of
+   ``Engine.generate`` on zamba2-7b at its published widths and full depth
+   (81 mamba2 layers, the shared attention block applied 13 times, 6.67 B
+   parameters by ``param_counts``), its K3 forward at a chunk of 48 and K2
+   at head dim 112 both held within the control limit (the control uses
+   both plain versions), with its cache bytes, bytes bound (the shared
+   block read once an application) and decode profile, then the same
+   decode with f32 parameters and activations (26.7 GB), held to the f32
+   forward through K2's and K3's SIMT kernels within 0.2% of the largest
+   logit, greedy tokens equal where the margin exceeds that; ``[hybrid
+   trainer]``, zamba2-7b at full width cut to 15 layers (2 groups of 6 and
+   the 3-layer tail), 5 steps of 1 x 2048 tokens, 2 K2 and 15 K3 wgmma
+   launches a step, then 2 steps with ``remat="full"`` from the same
+   weights and batches, equal within 1e-3 relative, with K2 rerun in the
+   backward;
 11. ``[multiprocess]``: ``run_multiprocess(n_procs=2)`` with K1 in the
    children on the C1P1 cell of tests/test_wire.py, flat and through 2
    collector shards, equal to the in-process run, two children's uploads
@@ -111,6 +131,7 @@ import shutil
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -167,6 +188,16 @@ MAMBA_SEQ = 2048     # the mamba2 trainer's tokens per step (batch 1)
 MAMBA_LAYER = (1, MAMBA_SEQ, 80, 64, 1, 128, 256)
 #: and at zamba2-7b's SSM layer (112 heads of 64, 2 groups of state 64)
 ZAMBA_LAYER = (1, MAMBA_SEQ, 112, 64, 2, 64, 256)
+ZAMBA = "zamba2-7b"
+ZAMBA_WINDOW = 4096  # its shared attention block's sliding window
+#: [hybrid trainer]'s depth: 2 groups of 6 mamba2 layers, each followed by
+#: the shared attention block, and the 3-layer tail.  Full depth needs 6.67
+#: B x 16 bytes = 106.8 GB of bf16 weights and gradients and fp32 master, m
+#: and v, which no card holds, with or without remat
+ZAMBA_TRAIN_LAYERS = 15
+ZAMBA_REMAT_STEPS = 2
+REMAT_RTOL = 1e-3    # remat="full" losses and grad norms vs the run without
+K2_112_LSE_TOL = 1e-5   # K2's lse at head dim 112 vs its plain version
 #: K3's wgmma passes, in launch order (device kernel names)
 K3_PASSES = ("ssd_fwd_state", "ssd_fwd_pass", "ssd_fwd_cb", "ssd_fwd_scan")
 K3_PROFILED_CALLS = 3
@@ -370,13 +401,18 @@ def k2_checks(K2) -> dict:
     128, and G 3 at D 256: one head a block), the reference's kernel-test
     shapes and variants in f32, and deepseek-v2's MLA at q/k head dim 192
     and v 128 (16 heads: the trainer's 2048 tokens, the serve forward's 4 x
-    48 and 200 tokens, no multiple of the 64-row kv tile).  Each case must
+    48 and 200 tokens, no multiple of the 64-row kv tile), and zamba2-7b's
+    shared attention at head dim 112 (32 heads, 32 kv heads, window 4096:
+    the trainer's 2048 tokens, the serve forward's 4 x 48, 200 tokens, 8192
+    where the window bites, q/k/v as strided views of one fused projection,
+    and f32 on the SIMT kernel), whose lse is held to 1e-5.  Each case must
     run the variant ``variant_for`` names."""
     g = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     worst_lse = 0.0
     bf16_ratio = 0.0      # worst |err| / (ATOL + RTOL * |ref|) in bf16
     mla_worst = 0.0       # worst |err| at MLA's (192, 128)
+    z_worst = {"out": 0.0, "lse": 0.0}   # worst |err| at head dim 112
     cases = [(torch.bfloat16, (1, S, 8, 4, 256),
               dict(GEMMA_ATTN, window=w), name)
              for S in (TRAIN_SEQ, 8192)
@@ -414,10 +450,27 @@ def k2_checks(K2) -> dict:
                                  (SERVE_BATCH, ENGINE_PROMPT + ENGINE_NEW,
                                   "(serve forward)"),
                                  (1, 200, "(200 tokens)"))]
+    zkw = dict(window=ZAMBA_WINDOW)
+    cases += [(dtype, (B, S, 32, 32, 112), zkw, f"zamba2-7b shared attention "
+               f"{name}")
+              for dtype, B, S, name in (
+                  (torch.bfloat16, 1, TRAIN_SEQ, "(trainer)"),
+                  (torch.bfloat16, SERVE_BATCH, ENGINE_PROMPT + ENGINE_NEW,
+                   "(serve forward)"),
+                  (torch.bfloat16, 1, 200, "(200 tokens)"),
+                  (torch.bfloat16, 1, 8192, "(8192 tokens: the window bites)"),
+                  (torch.bfloat16, 1, TRAIN_SEQ, "(views of one fused qkv)"),
+                  (torch.float32, 1, TRAIN_SEQ, "(f32)"))]
     for dtype, (B, S, H, KV, D, *Dv), kw, name in cases:
         Dv = Dv[0] if Dv else D
-        q = _rand(g, (B, S, H, D), dtype)
-        k, v = _rand(g, (B, S, KV, D), dtype), _rand(g, (B, S, KV, Dv), dtype)
+        if "fused" in name:       # strides of a (B, S, 3, H, D) projection
+            qkv = _rand(g, (B, S, 3, H, D), dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            del qkv
+        else:
+            q = _rand(g, (B, S, H, D), dtype)
+            k = _rand(g, (B, S, KV, D), dtype)
+            v = _rand(g, (B, S, KV, Dv), dtype)
         variant = K2.variant_for(dtype, D, Dv)
         before = K2.flash_attention.launches_by_variant[variant]
         out, lse = K2.flash_attention(q, k, v, return_lse=True, **kw)
@@ -446,17 +499,23 @@ def k2_checks(K2) -> dict:
               f"{lse_err:.3g}{extra}")
         if Dv != D:
             mla_worst = max(mla_worst, err)
+        if D == 112:
+            z_worst["out"] = max(z_worst["out"], err)
+            z_worst["lse"] = max(z_worst["lse"], lse_err)
         del q, k, v, out, lse, ref, ref_lse, diff
     print(f"[k2 check] worst bf16 {worst[torch.bfloat16]:.4g} at "
           f"{bf16_ratio:.3g} of its limit ({BF16_ATOL} + {BF16_RTOL} "
           f"* |ref|), worst f32 {worst[torch.float32]:.3g} (tolerance "
           f"{K2_F32_TOL}), worst lse {worst_lse:.3g} (tolerance "
-          f"{K2_LSE_TOL})")
+          f"{K2_LSE_TOL}); at head dim 112: worst |out err| "
+          f"{z_worst['out']:.4g}, worst lse {z_worst['lse']:.3g} (tolerance "
+          f"{K2_112_LSE_TOL})")
     if bf16_ratio > 1.0 or worst[torch.float32] > K2_F32_TOL \
-            or not worst_lse <= K2_LSE_TOL:
+            or not worst_lse <= K2_LSE_TOL \
+            or not z_worst["lse"] <= K2_112_LSE_TOL:
         raise AssertionError("K2 disagrees with its plain version")
     return {"bf16": worst[torch.bfloat16], "f32": worst[torch.float32],
-            "lse": worst_lse, "mla": mla_worst}
+            "lse": worst_lse, "mla": mla_worst, "zamba": z_worst}
 
 
 def sass_counts(lib: Path) -> dict | None:
@@ -589,30 +648,32 @@ SDPA_KERNELS = (("cudnn", "cudnn"), ("efficient", "fmha"),
                 ("flash", "flash"), ("math", "gemm"))
 
 
-def k2_mla_timing(K2, flush) -> dict:
-    """K2 at deepseek-v2's attention as the trainer hands it over: bf16
-    q/k (1, 2048, 16, 192), v (1, 2048, 16, 128), causal, MLA's scale; by
-    CUDA events and by ``torch.profiler`` device time (3 calls), beside its
-    bound, its plain version and ``scaled_dot_product_attention`` with
-    ``is_causal=True`` and the same scale, whose backend is named by the
-    kernels it launched (q/k and v of different head dims rule out
-    FlashAttention-2)."""
+def k2_sdpa_timing(K2, flush, label: str, H: int, D: int, Dv: int,
+                   scale: float, window: int = 0, seed: int = 4) -> dict:
+    """K2 at one model's attention as the trainer hands it over: bf16 q/k
+    (1, 2048, H, D), v (1, 2048, H, Dv), causal, with the model's scale
+    and window (one that does not bite at 2048 tokens); by CUDA events and
+    by ``torch.profiler`` device time (3 calls), beside its bound, its
+    plain version and ``scaled_dot_product_attention`` with
+    ``is_causal=True`` and the same scale (the same function there), whose
+    backend is named by the kernels it launched (at deepseek-v2's MLA, q/k
+    and v of different head dims rule out FlashAttention-2)."""
     from torch.profiler import ProfilerActivity, profile
     F = torch.nn.functional
-    g = torch.Generator(device="cuda").manual_seed(4)
-    q = _rand(g, (1, TRAIN_SEQ, 16, 192), torch.bfloat16)
-    k = _rand(g, (1, TRAIN_SEQ, 16, 192), torch.bfloat16)
-    v = _rand(g, (1, TRAIN_SEQ, 16, 128), torch.bfloat16)
-    kw = dict(scale=MLA_SCALE)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = _rand(g, (1, TRAIN_SEQ, H, D), torch.bfloat16)
+    k = _rand(g, (1, TRAIN_SEQ, H, D), torch.bfloat16)
+    v = _rand(g, (1, TRAIN_SEQ, H, Dv), torch.bfloat16)
+    kw = dict(scale=scale, window=window)
     kms = timed_ms(lambda: K2.flash_attention(q, k, v, **kw), TIMED_LAUNCHES,
                    flush)
     pms = timed_ms(lambda: K2.flash_attention_reference(q, k, v, **kw), 3)
-    bms, by = K2.bound_ms(q, k, Dv=v.shape[-1])
+    bms, by = K2.bound_ms(q, k, window=window, Dv=v.shape[-1])
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              scale=MLA_SCALE)
+                                              scale=scale)
     lib_ms = timed_ms(sdpa, TIMED_LAUNCHES, flush)
     ref = K2.flash_attention_reference(q, k, v, **kw)[0].float()
     lib_err = float((sdpa().transpose(1, 2).float() - ref).abs().max())
@@ -633,8 +694,9 @@ def k2_mla_timing(K2, flush) -> dict:
     backend = next((b for b, frag in SDPA_KERNELS
                     if any(frag in n.lower() for n in names)), "unknown")
     dev = sum(own) / len(own) if own else 0.0
-    print(f"[k2 time] deepseek-v2 MLA bf16 q/k (1, {TRAIN_SEQ}, 16, 192) v "
-          f"(1, {TRAIN_SEQ}, 16, 128) causal: kernel {kms:.4f} ms (device "
+    print(f"[k2 time] {label} bf16 q/k (1, {TRAIN_SEQ}, {H}, {D}) v "
+          f"(1, {TRAIN_SEQ}, {H}, {Dv}) causal, window {window}, scale "
+          f"{scale:.6g}: kernel {kms:.4f} ms (device "
           f"{dev:.4f} ms by torch.profiler over {len(own)} calls), bound "
           f"{bms:.4f} ms by {by} ({share(bms, kms)} of bound), plain "
           f"{pms:.3f} ms, sdpa is_causal {lib_ms:.4f} ms (backend "
@@ -711,12 +773,14 @@ def k3_checks(K3) -> dict:
     shapes (max |err| / max |ref| < 2e-5, the SIMT kernel); bf16 at
     mamba2-2.7b's layer shape from its init ranges and at the overflow end
     of them, and at zamba2-7b's SSM layer (elementwise within one bf16 step,
-    the wgmma variant), every case finite.  Each case must run the variant
-    ``variant_for`` names."""
+    the wgmma variant), and at the [hybrid serve] forward's 4 x 48 tokens
+    (a chunk of 48, no multiple of 64: the SIMT kernel in bf16), every case
+    finite.  Each case must run the variant ``variant_for`` names."""
     worst_f32, worst_bf16, ratio_bf16 = 0.0, 0.0, 0.0
 
     def run(ins, shape):
-        variant = K3.variant_for(ins[0].dtype, shape[3], shape[5], shape[6])
+        variant = K3.variant_for(ins[0].dtype, shape[3], shape[5],
+                                 min(shape[6], shape[1]))
         before = K3.ssd_scan.launches_by_variant[variant]
         out = K3.ssd_scan.run(*ins, shape[-1])
         torch.cuda.synchronize()
@@ -735,13 +799,16 @@ def k3_checks(K3) -> dict:
         print(f"[k3 check] kernel test f32 (B,S,H,P,G,N,Q)={shape} "
               f"({variant}, P slice {K3.p_split_for(shape[3])}): max |err| / "
               f"max |ref| {rel:.3g}")
-    for name, shape, ranges in (("mamba2-2.7b", MAMBA_LAYER, "model"),
-                                ("mamba2-2.7b", MAMBA_LAYER, "overflow"),
-                                ("zamba2-7b", ZAMBA_LAYER, "model")):
+    serve = (SERVE_BATCH, ENGINE_PROMPT + ENGINE_NEW) + ZAMBA_LAYER[2:]
+    for name, shape, ranges, want in (
+            ("mamba2-2.7b", MAMBA_LAYER, "model", "wgmma"),
+            ("mamba2-2.7b", MAMBA_LAYER, "overflow", "wgmma"),
+            ("zamba2-7b", ZAMBA_LAYER, "model", "wgmma"),
+            ("zamba2-7b serve forward", serve, "model", "simt")):
         ins = k3_inputs(shape, 7, torch.bfloat16, ranges)
         ref = K3.ssd_scan_reference(*ins, shape[-1]).float()
         out, variant = run(ins, shape)
-        if variant != "wgmma":
+        if variant != want:
             raise AssertionError(f"K3 at {name}'s layer ran {variant}")
         if not (torch.isfinite(out).all() and out.dtype == torch.bfloat16
                 and out.shape == ref.shape):
@@ -823,7 +890,8 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
     """The full trainer of ``cfg``: 5 instrumented steps of batch 1 x
     ``seq`` tokens on the card.  ``counter`` is the wrapper of the kernel
     the path runs once a layer (``label`` names it, ``fragment`` is a piece
-    of its device-side name for the profiler)."""
+    of its device-side name for the profiler).  Returns, besides, K2's and
+    K3's launches by variant over the counted steps."""
     tr = Trainer(cfg, DataConfig(batch=1, seq_len=seq), OptConfig(),
                  TrainConfig(perftracker=False), device="cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -848,6 +916,8 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
         aux.append(float(m["aux"]))
     launches = counter.launches
     by_variant = dict(getattr(counter, "launches_by_variant", {}))
+    k2_k3 = tuple(dict(w.launches_by_variant)
+                  for w in (kernels[1].flash_attention, kernels[2].ssd_scan))
     prof = tracer.stop_window()
     peak = torch.cuda.max_memory_allocated()
     top = sorted((e for e in prof.events if e.depth == 1),
@@ -879,7 +949,8 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
     gc.collect()
     torch.cuda.empty_cache()
     return dict(launches=launches, by_variant=by_variant, steps=steps,
-                peak=peak, state_bytes=state_bytes, profile=profile, aux=aux)
+                peak=peak, state_bytes=state_bytes, profile=profile, aux=aux,
+                k2_by_variant=k2_k3[0], k3_by_variant=k2_k3[1])
 
 
 #: kernel-name fragments of the matrix products (cuBLAS / CUTLASS kernels)
@@ -1387,6 +1458,15 @@ SERVE_IPW, SERVE_WINDOWS = 8, 7        # requests a window; fault in [2, 7)
 #: catches gross faults; K2 at this shape is held to its plain version in
 #: ``k2_checks``)
 LOGIT_CONTROL_FACTOR = 1.25
+#: [hybrid serve]'s f32 run: at zamba2's 81 layers bf16 rounding alone
+#: moves the logits by about their own size, so the control above cannot
+#: fail there.  With f32 parameters and activations the decode and the
+#: K2/K3 forward, and that forward and the plain-version control, must lie
+#: within this share of the largest forward logit of each other (H100 80GB
+#: HBM3, 700 W: 2.5e-4 and 1.4e-4; a decode one position off from step 20
+#: moved them by 1.25, and two applications of the shared block swapping
+#: K/V caches by 0.010: tools/hybrid_decode_mutants.py, PERF.md)
+F32_LOGIT_RTOL = 2e-3
 #: the serve fleet's depth: 4 workers at gemma2-2b's full width cut to one
 #: local/global pair.  A full-depth decode step takes ~10x a 2-layer one on
 #: the host ([serve engine] against [serve fleet]'s base TBT), so the three
@@ -1531,14 +1611,43 @@ class RouteLog:
                     dropped=dropped, pairs=int(counts.sum()))
 
 
+@contextmanager
+def plain_kernels(K2, K3):
+    """While entered, the model's attention and SSD scan run K2's and K3's
+    plain versions (the control forwards)."""
+    from repro_torch.models import attention_core as C
+    from repro_torch.models import ssm as S
+
+    def attention(q, k, v, return_lse=False, **kw):
+        out, lse = K2.flash_attention_reference(q, k, v, **kw)
+        return (out, lse) if return_lse else out
+
+    def ssd(x, dt, A, Bm, Cm, chunk):
+        return K3.ssd_scan_reference(x, dt, A, Bm, Cm, chunk)
+    C.flash_attention, S.ssd_scan = attention, ssd
+    try:
+        yield
+    finally:
+        C.flash_attention, S.ssd_scan = K2.flash_attention, K3.ssd_scan
+
+
+def forward_logits(model, params, tokens: torch.Tensor, V: int):
+    """One teacher-forced ``model.forward`` over ``tokens``: f32 logits of
+    every position, cut to the vocabulary."""
+    with torch.no_grad():
+        hidden, _, _ = model.forward(params, {"tokens": tokens})
+        return model.logits(params, hidden)[..., :V].float()
+
+
 def engine_vs_forward(tag, cfg, K, K2, K3, prompt_len: int,
                       n_new: int) -> dict:
     """``Engine.generate`` on ``cfg`` built on the card (``init`` with no
     device: the card) from seed 0: batch 4, max_len 128, ``prompt_len``
     tokens of prompt from seed 0, ``n_new`` new tokens, greedy.  One
     teacher-forced ``model.forward`` over the generated sequence (K2's
-    wgmma variant) gives the logits of every position, and a control forward
-    with K2's plain version in its place.  The engine's decode logits must
+    wgmma variant, and K3 in a model with mamba2 layers) gives the logits of
+    every position, and a control forward with their plain versions in
+    their place.  The engine's decode logits must
     be no further from the K2 forward than ``LOGIT_CONTROL_FACTOR`` times
     their distance from the control, and each greedy token must be the K2
     forward's argmax wherever its top-2 margin exceeds that limit.  An MoE
@@ -1548,7 +1657,6 @@ def engine_vs_forward(tag, cfg, K, K2, K3, prompt_len: int,
     between runs, so the forward takes the recorded run's tokens and the
     count of tokens that differ is printed.  Returns the engine, its prompts
     and the readings; the caller frees the engine."""
-    from repro_torch.models import attention_core as C
     from repro_torch.models.layers import param_bytes
     from repro_torch.models.transformer import Transformer
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -1568,10 +1676,8 @@ def engine_vs_forward(tag, cfg, K, K2, K3, prompt_len: int,
         logits, cache = step(*args)
         decoded.append(logits[:, 0, :V].float())
         return logits, cache
-
-    def plain_attention(q, k, v, return_lse=False, **kw):
-        out, lse = K2.flash_attention_reference(q, k, v, **kw)
-        return (out, lse) if return_lse else out
+    n_attn = len(model.layer_specs())
+    n_ssd = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
     engine.generate(prompts, 2)                 # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1581,24 +1687,20 @@ def engine_vs_forward(tag, cfg, K, K2, K3, prompt_len: int,
     toks = engine.generate(prompts, n_new)      # ends in a copy to host
     wall = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated()
-    k_decode = (K2.flash_attention.launches, K.pattern_summary.launches)
+    k_decode = (K2.flash_attention.launches, K3.ssd_scan.launches,
+                K.pattern_summary.launches)
     engine._step = recording_step
     again = engine.generate(prompts, n_new)
     engine._step = step
     runs_differ = int((toks != again).sum())
     tok_dev = torch.from_numpy(again.astype(np.int64)).cuda()
     reset_counts(K, K2, K3)
-    with torch.no_grad(), RouteLog() as routes:
-        hidden, _, _ = model.forward(params, {"tokens": tok_dev})
-        forward = model.logits(params, hidden)[..., :V].float()
+    with RouteLog() as routes:
+        forward = forward_logits(model, params, tok_dev, V)
     k2 = dict(K2.flash_attention.launches_by_variant)
-    with torch.no_grad():
-        C.flash_attention = plain_attention
-        try:
-            hidden, _, _ = model.forward(params, {"tokens": tok_dev})
-            control = model.logits(params, hidden)[..., :V].float()
-        finally:
-            C.flash_attention = K2.flash_attention
+    k3 = dict(K3.ssd_scan.launches_by_variant)
+    with plain_kernels(K2, K3):
+        control = forward_logits(model, params, tok_dev, V)
     # logits of the positions that produced the generated tokens
     lo = prompt_len - 1
     dec = torch.stack(decoded, 1)[:, lo:]
@@ -1619,16 +1721,17 @@ def engine_vs_forward(tag, cfg, K, K2, K3, prompt_len: int,
           f"{SERVE_BATCH} x ({prompt_len} + {n_new}) tokens, greedy: "
           f"{wall * 1e3:.3f} ms for {steps} steps, {wall * 1e3 / steps:.4f} "
           f"ms a step (host clock, ends in the copy to host); peak "
-          f"{peak} bytes; K2 / K1 launches while decoding {k_decode}; "
+          f"{peak} bytes; K2 / K3 / K1 launches while decoding "
+          f"{k_decode}; "
           f"tokens that differ between two generates {runs_differ}")
     print(f"{tag} cache {cache_bytes} bytes; a decode step reads every "
           f"weight (the reference computes every expert) and the cache: "
           f"bound {bound:.4f} ms at 3.35 TB/s, the step "
           f"{wall * 1e3 / steps / bound:.1f}x it")
     print(f"{tag} teacher-forced forward over {toks.shape}: K2 "
-          f"launches {k2}; max |forward logit| {scale:.4f}; max |decode - "
-          f"forward| logit {err:.4f}, control "
-          f"(K2's plain version in the forward) {ctrl:.4f}, limit "
+          f"launches {k2}, K3 launches {k3}; max |forward logit| "
+          f"{scale:.4f}; max |decode - forward| logit {err:.4f}, control "
+          f"(the kernels' plain versions in the forward) {ctrl:.4f}, limit "
           f"{LOGIT_CONTROL_FACTOR} x control = {limit:.4f}; max |forward - "
           f"control| {gap:.4f}; greedy token == forward argmax at "
           f"{int(agree.sum())} of {agree.numel()} positions; "
@@ -1643,14 +1746,19 @@ def engine_vs_forward(tag, cfg, K, K2, K3, prompt_len: int,
               f"{routing['max']} (capacity {routing['capacity']}); rows "
               f"dropped by capacity {routing['dropped']} of "
               f"{routing['pairs']}")
-    if (runs_differ and not cfg.is_moe) or k_decode != (0, 0) \
+    q3 = min(cfg.ssm_chunk, tok_dev.shape[1])
+    k3_want = K3.variant_for(torch.bfloat16, cfg.ssm_head_dim,
+                             cfg.ssm_state, q3) if n_ssd else "simt"
+    if (runs_differ and not cfg.is_moe) or k_decode != (0, 0, 0) \
             or not np.isfinite(err) or not ctrl > 0 or err > limit \
             or not bool((agree | ~sure).all()) \
-            or k2["wgmma"] != cfg.num_layers or k2["simt"]:
+            or k2["wgmma"] != n_attn or k2["simt"] \
+            or k3[k3_want] != n_ssd or sum(k3.values()) != n_ssd:
         raise AssertionError(f"{tag} the engine's decode disagrees with the "
                              "teacher-forced forward")
-    del decoded, forward, control, hidden, dec, ref, ctl
-    return dict(engine=engine, prompts=prompts, k2=k2, runs_differ=runs_differ,
+    del decoded, forward, control, dec, ref, ctl
+    return dict(engine=engine, prompts=prompts, k2=k2, k3=k3,
+                runs_differ=runs_differ,
                 ms_per_step=wall * 1e3 / steps, err=err, ctrl=ctrl, gap=gap,
                 peak=peak, param_bytes=nbytes, routing=routing,
                 logit_scale=scale, cache_bytes=cache_bytes, bound_ms=bound)
@@ -1660,17 +1768,108 @@ def decode_bytes_bound(engine, nbytes: int) -> tuple:
     """(cache bytes, the least ms of one decode step at 3.35 TB/s): every
     parameter byte and the whole cache read once, except the embedding
     table, of which only the batch's rows are read unless it is also the LM
-    head."""
+    head; a hybrid model's shared attention block is read once for each of
+    its applications."""
+    from repro_torch.models.layers import param_bytes
     cfg = engine.cfg
     cache = engine.model.init_cache(SERVE_BATCH, SERVE_MAX_LEN)  # the card
     cache_bytes = sum(t.numel() * t.element_size()
                       for c in cache for t in c.values())
     table = engine.params["embed"]["table"]
     read = nbytes + cache_bytes
+    if "shared_attn" in engine.params:
+        read += (len(engine.model.layer_specs()) - 1) \
+            * param_bytes(engine.params["shared_attn"])
     if not cfg.tie_embeddings:
         read -= (table.shape[0] - SERVE_BATCH) * table[0].numel() \
             * table.element_size()
     return cache_bytes, read / 3.35e12 * 1e3
+
+
+def f32_decode_vs_forward(tag, cfg, K, K2, K3, prompt_len: int,
+                          n_new: int) -> dict:
+    """``Engine.generate`` on ``cfg`` with f32 parameters and activations,
+    built on the card from seed 0 (batch 4, max_len 128, ``prompt_len``
+    tokens of prompt from seed 0, ``n_new`` greedy tokens), its decode
+    logits recorded; one teacher-forced ``model.forward`` through K2 and K3
+    (their SIMT kernels, which take f32), and a control forward with their
+    plain versions.  Decode against the K2/K3 forward, and that forward
+    against the control, must each be within ``F32_LOGIT_RTOL`` of the
+    largest forward logit, and each greedy token the forward's argmax
+    wherever its top-2 margin exceeds that limit."""
+    from repro_torch.models.layers import param_bytes
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = cfg.with_overrides(dtype="float32", param_dtype="float32")
+    V = cfg.vocab_size
+    model = Transformer(cfg)
+    params = model.init(0)
+    engine = Engine(cfg, params, ServeConfig(batch=SERVE_BATCH,
+                                             max_len=SERVE_MAX_LEN))
+    prompts = np.random.default_rng(0).integers(
+        0, V, (SERVE_BATCH, prompt_len)).astype(np.int32)
+    step, decoded = engine._step, []
+
+    def recording_step(*args):
+        logits, cache = step(*args)
+        decoded.append(logits[:, 0, :V].float())
+        return logits, cache
+    n_attn = len(model.layer_specs())
+    n_ssd = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    reset_counts(K, K2, K3)
+    engine._step = recording_step
+    t = time.perf_counter()
+    toks = engine.generate(prompts, n_new)
+    wall = time.perf_counter() - t
+    k_decode = (K2.flash_attention.launches, K3.ssd_scan.launches,
+                K.pattern_summary.launches)
+    tok_dev = torch.from_numpy(toks.astype(np.int64)).cuda()
+    reset_counts(K, K2, K3)
+    forward = forward_logits(model, params, tok_dev, V)
+    k2 = dict(K2.flash_attention.launches_by_variant)
+    k3 = dict(K3.ssd_scan.launches_by_variant)
+    with plain_kernels(K2, K3):
+        control = forward_logits(model, params, tok_dev, V)
+    steps = prompt_len + n_new - 1
+    lo = prompt_len - 1
+    dec = torch.stack(decoded, 1)[:, lo:]
+    ref, ctl = forward[:, lo:steps], control[:, lo:steps]
+    err = float((dec - ref).abs().max())
+    ctrl = float((dec - ctl).abs().max())
+    gap = float((ref - ctl).abs().max())
+    scale = float(ref.abs().max())
+    limit = F32_LOGIT_RTOL * scale
+    top2 = torch.topk(ref, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    sure = margin > limit
+    agree = tok_dev[:, prompt_len:] == ref.argmax(-1)
+    nbytes = param_bytes(params)
+    print(f"{tag} f32: {cfg.name}, {cfg.num_layers} layers, {nbytes} bytes "
+          f"of f32 parameters, batch {SERVE_BATCH} x ({prompt_len} + "
+          f"{n_new}) tokens, greedy: {wall * 1e3 / steps:.4f} ms a step "
+          f"(host clock); K2 / K3 / K1 launches while decoding {k_decode}; "
+          f"teacher-forced forward K2 launches {k2}, K3 launches {k3}; max "
+          f"|forward logit| {scale:.4f}, limit {F32_LOGIT_RTOL} x it = "
+          f"{limit:.4f}; max |decode - forward| {err:.6f} "
+          f"({err / scale:.3g} of it), |decode - control| {ctrl:.6f}, "
+          f"|forward - control| {gap:.6f}; greedy token == forward argmax "
+          f"at {int(agree.sum())} of {agree.numel()} positions; "
+          f"{int(sure.sum())} have a top-2 margin over the limit, where they "
+          f"must agree, and {int((agree & sure).sum())} do; median margin "
+          f"{float(margin.median()):.4f}")
+    if k_decode != (0, 0, 0) or not np.isfinite(err) or err > limit \
+            or not np.isfinite(gap) or gap > limit \
+            or not bool((agree | ~sure).all()) \
+            or k2["simt"] != n_attn or k2["wgmma"] \
+            or k3["simt"] != n_ssd or k3["wgmma"]:
+        raise AssertionError(f"{tag} the f32 decode disagrees with the "
+                             "teacher-forced forward")
+    del engine, params, decoded, forward, control, dec, ref, ctl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(err=err, ctrl=ctrl, gap=gap, logit_scale=scale, limit=limit,
+                ms_per_step=wall * 1e3 / steps, sure=int(sure.sum()),
+                agree=int(agree.sum()), positions=agree.numel(), k2=k2, k3=k3)
 
 
 def free_engine(run: dict) -> None:
@@ -1729,6 +1928,85 @@ def moe_pair_phase(K, K2, K3, ARCHS) -> dict:
                             PAIR_NEW)
     free_engine(run)
     return run
+
+
+def hybrid_serve_phase(K, K2, K3, ARCHS) -> dict:
+    """``engine_vs_forward`` on zamba2-7b at its published widths and depth
+    (81 mamba2 layers, the shared attention block after every 6th: 13
+    applications), 16-token prompts and 32 new tokens, with its decode
+    profile.  Its cache is 81 SSM caches (conv windows in bf16, the f32
+    state (4, 112, 64, 64)) and 13 K/V caches of 128 positions; the
+    forward runs K3 at a chunk of 48 (the SIMT kernel) and K2 at head dim
+    112.  bf16 rounding through 81 layers reaches the logits' own size, so
+    the same decode then runs in f32 (``f32_decode_vs_forward``), where the
+    check can fail."""
+    cfg = ARCHS[ZAMBA]
+    run = engine_vs_forward("[hybrid serve]", cfg, K, K2, K3, ENGINE_PROMPT,
+                            ENGINE_NEW)
+    B, W, G, N = SERVE_BATCH, cfg.conv_width, cfg.ssm_groups, cfg.ssm_state
+    ssm = B * (W - 1) * (cfg.d_inner + 2 * G * N) * 2 \
+        + B * cfg.ssm_heads * N * cfg.ssm_head_dim * 4
+    kv = 2 * B * SERVE_MAX_LEN * cfg.num_kv_heads * cfg.head_dim * 2
+    napp = len(run["engine"].model.layer_specs())
+    want = cfg.num_layers * ssm + napp * kv
+    print(f"[hybrid serve] cache: {cfg.num_layers} SSM caches of {ssm} bytes "
+          f"and {napp} K/V caches of {kv} bytes = {want} bytes")
+    if run["cache_bytes"] != want or napp != 13:
+        raise AssertionError(f"hybrid cache {run['cache_bytes']} bytes, "
+                             f"expected {want}")
+    run["profile"] = decode_profile(run["engine"], run["prompts"],
+                                    "[hybrid serve]")
+    free_engine(run)
+    run["f32"] = f32_decode_vs_forward("[hybrid serve]", cfg, K, K2, K3,
+                                       ENGINE_PROMPT, ENGINE_NEW)
+    return run
+
+
+def hybrid_remat_phase(K, K2, K3, cfg, first, Trainer, TrainConfig,
+                       DataConfig, OptConfig) -> dict:
+    """``ZAMBA_REMAT_STEPS`` steps of the [hybrid trainer] with
+    ``remat="full"``, from the same initial weights (seed 0) and batches:
+    each loss and grad norm within ``REMAT_RTOL`` of the first run's, K2
+    launched twice a group (the backward reruns each group's forward), peak
+    memory beside the first run's."""
+    tr = Trainer(cfg, DataConfig(batch=1, seq_len=TRAIN_SEQ), OptConfig(),
+                 TrainConfig(perftracker=False, remat="full"), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, _ = tr.init_state()
+    reset_counts(K, K2, K3)
+    rows, k2_steps, times = [], [], []
+    for _ in range(ZAMBA_REMAT_STEPS):
+        before = K2.flash_attention.launches
+        t = time.perf_counter()
+        params, opt_state, m = tr.train_iteration(params, opt_state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        k2_steps.append(K2.flash_attention.launches - before)
+        rows.append((float(m["loss"]), float(m["grad_norm"])))
+    peak = torch.cuda.max_memory_allocated()
+    k2 = dict(K2.flash_attention.launches_by_variant)
+    k3 = dict(K3.ssd_scan.launches_by_variant)
+    tr.loader.close()
+    del tr, params, opt_state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = [(st["loss"], st["grad_norm"]) for st in first["steps"]]
+    worst = max(abs(a - b) / abs(b) for r, w in zip(rows, want)
+                for a, b in zip(r, w))
+    napp = cfg.num_layers // cfg.shared_attn_every
+    print(f"[hybrid trainer] remat=\"full\": {ZAMBA_REMAT_STEPS} steps from "
+          f"the same weights and batches: (loss, grad norm) {rows} against "
+          f"{want[:ZAMBA_REMAT_STEPS]}, worst relative difference "
+          f"{worst:.3g} (tolerance {REMAT_RTOL}); step s "
+          f"{[round(x, 4) for x in times]}; K2 launches a step {k2_steps} "
+          f"({k2}), K3 {k3}; peak {peak} bytes (without remat "
+          f"{first['peak']})")
+    if not worst <= REMAT_RTOL or k2_steps != [2 * napp] * ZAMBA_REMAT_STEPS \
+            or k2["simt"] or k3["simt"] \
+            or k3["wgmma"] != 2 * cfg.num_layers * ZAMBA_REMAT_STEPS:
+        raise AssertionError("the remat run disagrees with the run without")
+    return dict(rows=rows, worst=worst, peak=peak, k2_per_step=k2_steps,
+                k2=k2, k3=k3, step_s=times)
 
 
 def serve_fleet_phase(K, K2, K3, ARCHS, expect) -> dict:
@@ -2095,6 +2373,7 @@ def main() -> int:
         from repro_torch.instrument.tracer import Tracer
         from repro_torch.models import attention_core as C
         from repro_torch.models import layers as L
+        from repro_torch.models.transformer import Transformer
         from repro_torch.optim.adamw import OptConfig
         from repro_torch.train.loop import Trainer, TrainConfig
         from repro_torch.train.workload import (DataloaderBurn, StepThrottle,
@@ -2311,7 +2590,10 @@ def main() -> int:
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device="cuda")
     k2_times = k2_timing(K2, flush)
-    k2_mla = k2_mla_timing(K2, flush)
+    k2_mla = k2_sdpa_timing(K2, flush, "deepseek-v2 MLA", 16, 192, 128,
+                            MLA_SCALE)
+    k2_zamba = k2_sdpa_timing(K2, flush, "zamba2-7b shared attention", 32,
+                              112, 112, 112 ** -0.5, ZAMBA_WINDOW, seed=5)
     bwd = attention_backward_ms(C, K2, flush)
     head = logits_ce_ms(L, flush)
     del flush
@@ -2403,6 +2685,30 @@ def main() -> int:
         raise AssertionError("the moe trainer's K2 launches were not all "
                              "wgmma")
     clock.lap("moe trainer")
+
+    # -- 11c. the hybrid family: zamba2-7b served at full depth, trained with
+    # depth cut, then with remat="full" --------------------------------------
+    hyb_serve = hybrid_serve_phase(K, K2, K3, ARCHS)
+    clock.lap("hybrid serve")
+    zcfg = ARCHS[ZAMBA].with_overrides(num_layers=ZAMBA_TRAIN_LAYERS)
+    hyb_tr = trainer_phase("[hybrid trainer]", zcfg, TRAIN_SEQ, (K, K2, K3),
+                           "K3", K3.ssd_scan, "ssd_fwd", Trainer, TrainConfig,
+                           DataConfig, OptConfig, Tracer)
+    napp = len(Transformer(zcfg).layer_specs())
+    print(f"[hybrid trainer] {ZAMBA_TRAIN_LAYERS} layers ({napp} groups of "
+          f"{zcfg.shared_attn_every} + a tail of "
+          f"{ZAMBA_TRAIN_LAYERS % zcfg.shared_attn_every}): launches in the "
+          f"{TRAIN_STEPS} counted steps K2 {hyb_tr['k2_by_variant']}, K3 "
+          f"{hyb_tr['k3_by_variant']}; peak {hyb_tr['peak']} bytes, state "
+          f"{hyb_tr['state_bytes']} bytes")
+    if hyb_tr["k2_by_variant"] != {"wgmma": napp * TRAIN_STEPS, "simt": 0} \
+            or hyb_tr["k3_by_variant"] != {
+                "wgmma": ZAMBA_TRAIN_LAYERS * TRAIN_STEPS, "simt": 0}:
+        raise AssertionError("the hybrid trainer's K2 and K3 launches were "
+                             "not all wgmma, or not one an application")
+    hyb_remat = hybrid_remat_phase(K, K2, K3, zcfg, hyb_tr, Trainer,
+                                   TrainConfig, DataConfig, OptConfig)
+    clock.lap("hybrid trainer")
     serve = serve_fleet_phase(K, K2, K3, ARCHS, SERVE_EXPECT)
     clock.lap("serve fleet")
 
@@ -2499,6 +2805,27 @@ def main() -> int:
                             f"scale=192^-0.5), backend "
                             f"{k2_mla['library_backend']}",
             "library_max_abs_err": k2_mla["library_err"]},
+        "zamba2_shape": {
+            "shape": f"bf16 q/k/v (1, {TRAIN_SEQ}, 32, 112), causal, window "
+                     f"{ZAMBA_WINDOW}: zamba2-7b's shared attention block "
+                     f"(tiles of 128, columns 112-127 zero)",
+            "launches": sum(hyb_tr["k2_by_variant"].values()),
+            "launches_by_variant": hyb_tr["k2_by_variant"],
+            "remat_launches_per_step": hyb_remat["k2_per_step"],
+            "serve_forward_launches_by_variant": hyb_serve["k2"],
+            "serve_f32_forward_launches_by_variant": hyb_serve["f32"]["k2"],
+            "max_abs_err": k2_err["zamba"]["out"],
+            "max_abs_err_lse": k2_err["zamba"]["lse"],
+            "ms": k2_zamba["ms"],
+            "device_ms": k2_zamba["device_ms"],
+            "plain_ms": k2_zamba["plain_ms"],
+            "bound_ms": k2_zamba["bound_ms"],
+            "bound_by": k2_zamba["bound_by"],
+            "library_ms": k2_zamba["library_ms"],
+            "library_call": "scaled_dot_product_attention(is_causal=True, "
+                            f"scale=112^-0.5), backend "
+                            f"{k2_zamba['library_backend']}",
+            "library_max_abs_err": k2_zamba["library_err"]},
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -2520,6 +2847,12 @@ def main() -> int:
         "library_call": "none: no PyTorch call computes the SSD scan",
         "plain_backward_ms": k3_time["backward_ms"],
         "passes_ms": k3_time["passes_ms"],
+        "zamba2": {
+            "trainer_launches_by_variant": hyb_tr["k3_by_variant"],
+            "remat_launches_by_variant": hyb_remat["k3"],
+            "serve_forward_launches_by_variant": hyb_serve["k3"],
+            "serve_f32_forward_launches_by_variant":
+                hyb_serve["f32"]["k3"]},
     }]}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s; by phase "
           f"{clock.times}")

@@ -9,14 +9,15 @@
 // in q's dtype; lse (B, Sq, H) fp32 (m + log l per row) is written too, for
 // the backward.  Dv differs from D only in MLA (deepseek-v2: q/k 192 = 128
 // nope + 64 rope dims, v 128), which the wgmma kernel takes as (192, 128).
+// zamba2-7b's head dim 112 (3584 / 32) runs on the tiles of D = 128.
 // Tensors are read in the JAX layout (B, S, H, D) through their strides,
 // with D contiguous: nothing is transposed.
 //
 // Two kernels compute that function; the wrapper
 // (kernels/flash_attention.py::variant_for) picks one by a fixed rule before
-// any launch: bf16 with (D, Dv) in {(64, 64), (128, 128), (256, 256), (192,
-// 128)} runs `flash_fwd_wgmma`, float32 and bf16 with D = Dv in {16, 32} run
-// `flash_fwd`.  A failed launch of either raises; nothing retries on the
+// any launch: bf16 with (D, Dv) in {(64, 64), (112, 112), (128, 128), (256,
+// 256), (192, 128)} runs `flash_fwd_wgmma`, float32 and bf16 with D = Dv in
+// {16, 32} run `flash_fwd`.  A failed launch of either raises; nothing retries on the
 // other.
 //
 // `flash_fwd_wgmma` (bf16, tensor cores).  One block of 3 warpgroups (384
@@ -54,8 +55,16 @@
 //   V 2 x 16 KB: 128 KB.  Registers per consumer thread at D = 256: O 128
 //   fp32, S 32, P 16; at (192, 128) O is 64.  MLA's V is not padded to 192:
 //   that would add a copy and half again the P V work.
+// - Head dim 112 runs `flash_fwd_wgmma<128, 128, kHeads, 112>`: the tensor
+//   maps keep the real inner dimension (112), so the second 64-column box
+//   of each Q, K and V row reads columns 64-127 and TMA fills 112-127 with
+//   zeros (a box past the tensor's edge still delivers, and counts, all its
+//   bytes, so the expect-tx counts stay the full tiles).  Zero columns add
+//   nothing to Q K^T and give zero columns of P V, which the epilogue does
+//   not store (they would land on the next head's output).  1/8 of the
+//   tensor-core work is on those padding columns.
 // - Epilogue: O / max(l, 1e-30) to bf16 stored from registers, rows past
-//   Sq skipped; lse = m + log(max(l, 1e-30)), or -1e30 for a row the mask
+//   Sq and columns past the head dim skipped; lse = m + log(max(l, 1e-30)), or -1e30 for a row the mask
 //   empties wholly, as the reference's kernel gives.
 //
 // `flash_fwd` (float32, and bf16 at D 16 and 32; the SIMT design).  One
@@ -364,11 +373,12 @@ __device__ __forceinline__ float tanh_acc(float u) {
 }
 
 // One consumer warpgroup (`c` = 0 or 1) of head h, q rows [q0, q0 + 64):
-// the kv tiles [jbeg, jend) from the ring, then O and lse of its rows.  In
+// the kv tiles [jbeg, jend) from the ring, then O and lse of its rows (the
+// first kOutCols columns of O: the real head dim, Dv but at 112).  In
 // the m64n64 fragment, thread t (warp w, lane l) holds rows 16w + l/4 (+8)
 // and, for register i, column 8 (i / 4) + 2 (l % 4) + (i % 2) of row half
 // (i / 2) % 2.
-template <int D, int Dv>
+template <int D, int Dv, int kOutCols>
 __device__ __forceinline__ void consume(const WParams& p,
                                         unsigned char* smem, uint64_t* bars,
                                         int c, int q0, int h, int b,
@@ -522,9 +532,10 @@ __device__ __forceinline__ void consume(const WParams& p,
     for (int a = 0; a < NA; ++a)
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
-        *reinterpret_cast<__nv_bfloat162*>(og + a * kAtomCols + jj * 8) =
-            __floats2bfloat162_rn(o[a][jj * 4 + 2 * r] * inv,
-                                  o[a][jj * 4 + 2 * r + 1] * inv);
+        if (a * kAtomCols + jj * 8 < kOutCols)   // a pair's 8-column group
+          *reinterpret_cast<__nv_bfloat162*>(og + a * kAtomCols + jj * 8) =
+              __floats2bfloat162_rn(o[a][jj * 4 + 2 * r] * inv,
+                                    o[a][jj * 4 + 2 * r + 1] * inv);
     if ((lane & 3) == 0)
       p.lse[((long long)b * p.Sq + srow) * p.H + h] =
           (m[r] <= kNegInf ? kNegInf : m[r] * kLn2) + logf(lc);
@@ -534,8 +545,8 @@ __device__ __forceinline__ void consume(const WParams& p,
 // kHeads q heads per block: 1 (the consumers take rows 0-63 and 64-127 of
 // one head) or 2 (two heads of one kv head, 64 rows each, sharing every K
 // and V tile).  Q's shared tile is 128 rows either way, consumer c's at row
-// 64c.
-template <int D, int Dv, int kHeads>
+// 64c.  kOutCols: the output columns stored (Dv, or 112 on 128-wide tiles).
+template <int D, int Dv, int kHeads, int kOutCols>
 __global__ void __launch_bounds__(kWThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
@@ -590,7 +601,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   } else {
     reg_alloc<240>();
     const int c = threadIdx.x / 128 - 1;
-    consume<D, Dv>(p, smem, bars, c, kHeads == 1 ? q0 + 64 * c : q0,
+    consume<D, Dv, kOutCols>(p, smem, bars, c, kHeads == 1 ? q0 + 64 * c : q0,
                    kHeads == 1 ? h : h + c, b, jbeg, jend);
   }
 }
@@ -623,6 +634,7 @@ static cudaError_t dispatch(const Params& p, int D, cudaStream_t stream) {
   if constexpr (sizeof(T) == 4) {
     switch (D) {
       case 64: return launch<T, 64>(p, stream);
+      case 112: return launch<T, 112>(p, stream);
       case 128: return launch<T, 128>(p, stream);
       case 256: return launch<T, 256>(p, stream);
     }
@@ -639,6 +651,7 @@ static long long simt_smem(int D) {
   if constexpr (sizeof(T) == 4) {
     switch (D) {
       case 64: return smem_bytes<T, 64>();
+      case 112: return smem_bytes<T, 112>();
       case 128: return smem_bytes<T, 128>();
       case 256: return smem_bytes<T, 256>();
     }
@@ -646,35 +659,36 @@ static long long simt_smem(int D) {
   return 0;
 }
 
-template <int D, int Dv, int kHeads>
+template <int D, int Dv, int kHeads, int kOutCols>
 static cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                                 const CUtensorMap& tv, const WParams& p,
                                 int B, cudaStream_t stream) {
   constexpr int smem = WLayout<D, Dv>::kBytes;
   constexpr int rows = kWRows / kHeads;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma<D, Dv, kHeads>,
+      flash_fwd_wgmma<D, Dv, kHeads, kOutCols>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + rows - 1) / rows, p.H / kHeads, B);
-  flash_fwd_wgmma<D, Dv, kHeads><<<grid, kWThreads, smem, stream>>>(
+  flash_fwd_wgmma<D, Dv, kHeads, kOutCols><<<grid, kWThreads, smem, stream>>>(
       tq, tk, tv, p);
   return cudaGetLastError();
 }
 
-template <int D, int Dv>
+// tiles of (D, Dv); the output's first kOutCols columns are stored
+template <int D, int Dv, int kOutCols = Dv>
 static cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                                 const CUtensorMap& tv, const WParams& p,
                                 int B, int heads_per_block,
                                 cudaStream_t stream) {
   return heads_per_block == 2
-             ? launch_wgmma<D, Dv, 2>(tq, tk, tv, p, B, stream)
-             : launch_wgmma<D, Dv, 1>(tq, tk, tv, p, B, stream);
+             ? launch_wgmma<D, Dv, 2, kOutCols>(tq, tk, tv, p, B, stream)
+             : launch_wgmma<D, Dv, 1, kOutCols>(tq, tk, tv, p, B, stream);
 }
 
 // the (D, Dv) pairs of the wgmma kernel
 static bool wgmma_pair(int D, int Dv) {
-  return (D == Dv && (D == 64 || D == 128 || D == 256))
+  return (D == Dv && (D == 64 || D == 112 || D == 128 || D == 256))
       || (D == 192 && Dv == 128);
 }
 
@@ -711,7 +725,7 @@ extern "C" int k2_flash_attention(
 }
 
 // The wgmma kernel `flash_fwd_wgmma`: bf16 q/k/v with (D, Dv) in {(64, 64),
-// (128, 128), (256, 256), (192, 128)}; D is the head dim of q and k, Dv
+// (112, 112), (128, 128), (256, 256), (192, 128)}; D is the head dim of q and k, Dv
 // that of v and the output.  q/k/v strides (elements) are those the TMA
 // descriptors read by: 16-byte multiples, with a 16-byte-aligned base (the
 // wrapper checks both).  Returns 0, a cudaError_t of the launch, or minus
@@ -748,6 +762,7 @@ extern "C" int k2_flash_attention_wgmma(
   const int hpb = heads_per_block;
   cudaError_t err =
       D == 64 ? k2::launch_wgmma<64, 64>(tq, tk, tv, p, B, hpb, st)
+      : D == 112 ? k2::launch_wgmma<128, 128, 112>(tq, tk, tv, p, B, hpb, st)
       : D == 128 ? k2::launch_wgmma<128, 128>(tq, tk, tv, p, B, hpb, st)
       : D == 192 ? k2::launch_wgmma<192, 128>(tq, tk, tv, p, B, hpb, st)
                  : k2::launch_wgmma<256, 256>(tq, tk, tv, p, B, hpb, st);
@@ -764,6 +779,7 @@ extern "C" long long k2_smem_bytes(int dtype, int D, int Dv) {
   if (dtype != 1) return 0;
   switch (D) {
     case 64: return k2::WLayout<64, 64>::kBytes;
+    case 112:   // on the tiles of 128
     case 128: return k2::WLayout<128, 128>::kBytes;
     case 256: return k2::WLayout<256, 256>::kBytes;
   }

@@ -13,10 +13,13 @@ kernel in ``csrc/flash_attention.cu`` or raises; on a CPU tensor it runs
 Which kernel runs is one fixed rule, ``variant_for(dtype, D, Dv)``, decided
 before any launch:
 
-* bfloat16 with D = Dv in (64, 128, 256), every head dim of the repo's GQA
-  models, and (D, Dv) = (192, 128), deepseek-v2's MLA after its per-head K
-  and V are materialized (128 nope + 64 rope dims for q and k, 128 for v),
-  runs ``"wgmma"``: tensor-core tiles (``wgmma``) fed by TMA loads, a
+* bfloat16 with D = Dv in (64, 112, 128, 256), every head dim of the
+  repo's GQA models (112: zamba2-7b's shared attention block, run on the
+  tiles of 128 with TMA filling columns 112-127 with zeros and the
+  epilogue storing 112), and (D, Dv) = (192, 128), deepseek-v2's MLA after
+  its per-head K and V are materialized (128 nope + 64 rope dims for q and
+  k, 128 for v), runs ``"wgmma"``: tensor-core tiles (``wgmma``) fed by TMA
+  loads, a
   producer warpgroup and two consumer warpgroups of 64 q rows per block
   (two q heads of one kv head per block when H/KV is even, so they share
   every K and V tile; else 128 rows of one head).  Its operands must suit
@@ -61,9 +64,10 @@ SOURCE = _build.CSRC / "flash_attention.cu"
 NEG_INF = -1.0e30
 
 #: head dims the kernels are instantiated for
-HEAD_DIMS = (16, 32, 64, 128, 256)
-#: bf16 head dims of the wgmma variant (``flash_fwd_wgmma`` in the source)
-WGMMA_HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
+#: bf16 head dims of the wgmma variant (``flash_fwd_wgmma`` in the source;
+#: 112 on the tiles of 128)
+WGMMA_HEAD_DIMS = (64, 112, 128, 256)
 #: the one (D, Dv) pair with D != Dv, bf16 on the wgmma variant: MLA's
 #: materialized attention (deepseek-v2: 128 nope + 64 rope, v 128)
 MLA_HEAD_DIMS = (192, 128)

@@ -12,11 +12,18 @@ Shapes follow the reference: q ``(B, Sq, H, D)``, k ``(B, Skv, KV, D)`` and
 v ``(B, Skv, KV, Dv)``, the output ``(B, Sq, H, Dv)`` (Dv differs from D in
 MLA: 192 and 128 at deepseek-v2's widths, which K2 takes); this port keeps
 ``lse`` as ``(B, Sq, H)`` (the reference's ``(B, Sq, KV, G)`` flattened, head
-``h = kv * G + g``).  Only the unfolded schedule is ported:
-``AttnSpec(folded=True)`` raises ``NotImplementedError``.  The blocks of
-``AttnSpec`` tile the backward only (K2 tiles the forward itself); its loop
-skips (q, kv) block pairs that the causal mask or the window empties wholly,
-where the reference computes them and adds zeros.
+``h = kv * G + g``).  The blocks of ``AttnSpec`` tile the backward (K2
+tiles the forward itself); its loop skips (q, kv) block pairs that the
+causal mask or the window empties wholly, where the reference computes them
+and adds zeros.
+
+``AttnSpec.folded`` (balanced causal folding) is accepted and runs the
+unfolded path.  On the TPU the fold pairs q blocks (i, NQ-1-i) so that
+every step of the kernel's grid does the same work; here it would only
+reorder block updates.  K2's forward on the card already skips the tiles
+the causal mask empties, and the backward's loop (``_live``) visits
+exactly the block pairs the mask keeps, so the work is the same either
+way and the function is the reference's folded one.
 """
 from __future__ import annotations
 
@@ -30,10 +37,6 @@ from repro_torch.kernels.flash_attention import flash_attention
 Tensor = torch.Tensor
 NEG_INF = -1.0e30
 
-_FOLDED = ("balanced causal folding (AttnSpec.folded) is not ported: "
-           "ROADMAP Queue 1 item 1")
-
-
 class AttnSpec(NamedTuple):
     causal: bool = True
     window: int = 0          # 0 = full
@@ -41,7 +44,7 @@ class AttnSpec(NamedTuple):
     scale: float = 0.0       # 0 -> 1/sqrt(D)
     q_block: int = 512
     kv_block: int = 512
-    folded: bool = False     # balanced causal folding (not ported)
+    folded: bool = False     # balanced causal folding
 
 
 def _mask(qpos: Tensor, kpos: Tensor, spec: AttnSpec, kv_len) -> Tensor:
@@ -80,8 +83,6 @@ def _backward(q, k, v, out, lse, dout, spec: AttnSpec, q_offset: int = 0,
               kv_len=None):
     """Plain blocked backward: recomputes each block's probabilities from
     ``lse``; returns (dq, dk, dv) in the inputs' dtypes."""
-    if spec.folded:
-        raise NotImplementedError(_FOLDED)
     B, Sq, H, D = q.shape
     Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // KV
@@ -131,8 +132,6 @@ class _BlockedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, spec: AttnSpec, q_offset: int,
                 kv_len: Optional[int]):
-        if spec.folded:
-            raise NotImplementedError(_FOLDED)
         out, lse = flash_attention(
             q, k, v, causal=spec.causal, window=spec.window,
             softcap=spec.softcap, scale=spec.scale, q_offset=q_offset,

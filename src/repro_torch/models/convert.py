@@ -10,7 +10,10 @@ a mamba2 layer is ``{"ln", "mamba"}``).  The ``moe`` family's two layouts:
 deepseek's ``dense0 (first_dense, ...)`` and ``blocks (L - first_dense,
 ...)`` become layers ``0 .. first_dense - 1`` and the rest; llama4's
 ``pair_dense (L/2, ...)`` and ``pair_moe (L/2, ...)`` become layers ``2i``
-and ``2i + 1``.  Every leaf keeps its reference dtype: mamba2's f32
+and ``2i + 1``.  The ``hybrid`` family's ``groups (ngroups, k, ...)`` and
+``tail (tail, ...)`` of mamba2 layers become layers ``g k + j`` and then the
+tail's; its unstacked ``shared_attn`` block is carried as it is.  Every leaf
+keeps its reference dtype: mamba2's f32
 ``A_log``, ``D`` and ``dt_bias`` and the MoE router stay f32 under bf16
 parameters, and bf16 goes through float32, so its values are carried bit for
 bit.  Nothing of JAX is imported: the tree is plain dicts of numpy arrays.
@@ -30,6 +33,8 @@ from repro_torch.core.service import resolve_device
 
 #: the reference's stacked layer groups of the ``moe`` family
 MOE_GROUPS = ("dense0", "blocks", "pair_dense", "pair_moe")
+#: and of the ``hybrid`` family
+HYBRID_GROUPS = ("groups", "tail")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -46,12 +51,13 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def _layers(sub, n: int, device, pair: bool = False):
-    """The first ``n`` layers of a stacked group as one dict each (``pair``:
-    gemma2's ``(L/2, 2, ...)`` stacking)."""
+def _layers(sub, n: int, device, inner: int = 0):
+    """The first ``n`` layers of a stacked group as one dict each
+    (``inner``: the size of a second stacked axis, as gemma2's ``(L/2, 2,
+    ...)`` pairs or a hybrid model's ``(ngroups, k, ...)`` groups)."""
     def take(a, i):
         a = np.asarray(a)
-        return a[i // 2, i % 2] if pair else a[i]
+        return a[i // inner, i % inner] if inner else a[i]
     return [_map(sub, lambda a, i=i: _tensor(take(a, i), device))
             for i in range(n)]
 
@@ -59,15 +65,22 @@ def _layers(sub, n: int, device, pair: bool = False):
 def params_from_reference(tree: Dict[str, Any], cfg, device=None
                           ) -> Dict[str, Any]:
     """See the module docstring.  ``cfg`` is the port's ``ModelConfig`` of
-    the same architecture (a ``dense``/``vlm``/``audio``/``ssm``/``moe``
-    family)."""
+    the same architecture (any family)."""
     device = resolve_device(device)
     L = cfg.num_layers
-    groups = MOE_GROUPS if cfg.is_moe else ("blocks",)
+    hybrid = cfg.family == "hybrid"
+    groups = MOE_GROUPS if cfg.is_moe else \
+        HYBRID_GROUPS if hybrid else ("blocks",)
     out: Dict[str, Any] = {key: _map(sub, lambda a: _tensor(a, device))
                            for key, sub in tree.items() if key not in groups}
-    if not cfg.is_moe:
-        out["blocks"] = _layers(tree["blocks"], L, device, cfg.local_global)
+    if hybrid:
+        k = cfg.shared_attn_every
+        ngroups, tail = divmod(L, k)
+        out["blocks"] = _layers(tree["groups"], ngroups * k, device, k) \
+            + (_layers(tree["tail"], tail, device) if tail else [])
+    elif not cfg.is_moe:
+        out["blocks"] = _layers(tree["blocks"], L, device,
+                                2 if cfg.local_global else 0)
     elif cfg.moe_every == 2:
         dense = _layers(tree["pair_dense"], L // 2, device)
         moe = _layers(tree["pair_moe"], L // 2, device)
@@ -91,6 +104,14 @@ def params_to_numpy(params, cfg) -> Dict[str, Any]:
             continue
         out[key] = _map(sub, f32)
     blocks = [_map(b, f32) for b in params["blocks"]]
+    if cfg.family == "hybrid":
+        k = cfg.shared_attn_every
+        ngroups, tail = divmod(cfg.num_layers, k)
+        out["groups"] = _map(_stack(blocks[:ngroups * k]),
+                             lambda a: a.reshape((ngroups, k) + a.shape[1:]))
+        if tail:
+            out["tail"] = _stack(blocks[ngroups * k:])
+        return out
     if cfg.is_moe and cfg.moe_every == 2:
         out["pair_dense"] = _stack(blocks[0::2])
         out["pair_moe"] = _stack(blocks[1::2])

@@ -1,6 +1,7 @@
-"""Model assembly for the ``dense``, ``vlm``, ``audio``, ``ssm`` and ``moe``
-families, gemma2's local/global layer pairs and MLA attention included (port
-of the reference's ``repro/models/transformer.py``).
+"""Model assembly for every family of the reference (``dense``, ``vlm``,
+``audio``, ``ssm``, ``moe`` and ``hybrid``), gemma2's local/global layer
+pairs and MLA attention included (port of the reference's
+``repro/models/transformer.py``).
 
 Parameters are nested dicts of tensors with the reference's names.  The
 reference stacks layers on a leading axis and runs them with ``lax.scan``;
@@ -12,21 +13,41 @@ reference's own parameters across.  An ``ssm`` layer (mamba2) is
 ``moe`` layer is ``{"attn", "mlp"}`` (dense) or ``{"attn", "moe"}``, in one
 of the reference's two layouts (``moe_layer``): deepseek's
 ``first_dense`` dense layers of width ``dense_d_ff`` and then MoE, or
-llama4's (dense, MoE) pairs (``moe_every = 2``).
+llama4's (dense, MoE) pairs (``moe_every = 2``).  A ``hybrid`` model
+(zamba2) is ``num_layers`` mamba2 layers in ``params["blocks"]`` (the
+reference's ``groups (ngroups, k, ...)`` flattened, then its ``tail``) and
+one attention block ``params["shared_attn"]``, applied after the last layer
+of each group of ``k = shared_attn_every`` and never after the tail; one set
+of tensors, so autograd sums its gradient over the applications, as the
+reference's scan does.
+
+``remat`` (``"none"``, ``"full"``, ``"dots"``) runs the bodies the
+reference wraps in ``jax.checkpoint`` under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: a layer, a
+pair (gemma2's local/global, llama4's (dense, MoE)) or a hybrid group.
+``"full"`` saves nothing inside the body; ``"dots"`` saves the outputs of
+the matrix products without batch dims (``aten.mm``), as
+``dots_with_no_batch_dims_saveable`` does.  K2's and K3's forwards run
+again when the backward recomputes a body.  ``folded`` sets
+``AttnSpec.folded`` in the forward's attention, as the reference does;
+``models.attention_core`` runs it on the unfolded path, which does the
+same work on the card.
 
 ``Transformer.init`` and ``init_cache`` put their tensors on ``device``;
 ``None`` means the card (``core.service.resolve_device``), and they raise
 without one unless the caller asks for ``"cpu"``.
 
-Not ported yet (each raises ``NotImplementedError``): the ``hybrid`` family,
-remat other than ``"none"`` and balanced causal folding (ROADMAP Queue 1
-item 1), and the ``dist`` context (Queue 1 item 2).
+Not ported yet (raises ``NotImplementedError``): the ``dist`` context and
+phantom-head padding (ROADMAP Queue 1 item 2).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.service import resolve_device
 from repro_torch.models import attention as A
@@ -36,12 +57,23 @@ from repro_torch.models import ssm as S
 
 Tensor = torch.Tensor
 
-FAMILIES = ("dense", "vlm", "audio", "ssm", "moe")
+FAMILIES = ("dense", "vlm", "audio", "ssm", "moe", "hybrid")
+REMATS = ("none", "full", "dots")
 
 
-def _not_ported(what: str, item: int = 1) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 "
-                               f"item {item}")
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of matrix products without
+    batch dims (``x @ w`` reaches ``aten.mm``; the einsums over heads,
+    chunks or experts reach ``aten.bmm`` and are recomputed)."""
+    return CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def hybrid_layout(cfg):
+    """``(ngroups, tail)`` of a hybrid model: groups of
+    ``shared_attn_every`` mamba layers, each followed by the shared
+    attention block, then ``tail`` mamba layers."""
+    return divmod(cfg.num_layers, cfg.shared_attn_every)
 
 
 def attn_spec(cfg, window: int, folded: bool = False) -> A.AttnSpec:
@@ -160,13 +192,12 @@ class Transformer:
     def __init__(self, cfg, dist=None, attn_impl=None, remat: str = "none",
                  folded: bool = False, pad_heads: bool = False):
         if cfg.family not in FAMILIES:
-            raise _not_ported(f"the {cfg.family!r} family")
-        if remat != "none":
-            raise _not_ported(f"remat={remat!r}")
-        if folded:
-            raise _not_ported("balanced causal folding")
+            raise ValueError(f"unknown family {cfg.family!r}")
+        if remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
         if dist is not None or pad_heads:
-            raise _not_ported("the distribution context", 2)
+            raise NotImplementedError("the distribution context is not "
+                                      "ported yet: ROADMAP Queue 1 item 2")
         self.cfg = cfg
         self.attn_impl = attn_impl or A.blocked_attention
         self.remat = remat
@@ -194,9 +225,11 @@ class Transformer:
                                          device=device)
         if cfg.local_global and cfg.num_layers % 2:
             raise ValueError("local/global pairs need an even layer count")
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             p["blocks"] = [init_mamba_block(gen, cfg, device)
                            for _ in range(cfg.num_layers)]
+            if cfg.family == "hybrid":
+                p["shared_attn"] = init_attn_block(gen, cfg, device)
         elif cfg.family == "moe":
             p["blocks"] = [
                 init_attn_block(gen, cfg, device, moe=True)
@@ -220,37 +253,98 @@ class Transformer:
                                         cfg.scale_embed, cfg.d_model).to(dt))
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
-    def layer_specs(self) -> List[A.AttnSpec]:
-        """The attention spec of every layer, in order."""
+    def layer_specs(self, folded: bool = False) -> List[A.AttnSpec]:
+        """The attention spec of every attention layer, in order (a hybrid
+        model's: each application of its shared block).  ``folded`` is the
+        forward's balanced causal folding; decode never folds."""
         cfg = self.cfg
-        sw, full = attn_spec(cfg, cfg.sliding_window), attn_spec(cfg, 0)
+        sw = attn_spec(cfg, cfg.sliding_window, folded)
+        full = attn_spec(cfg, 0, folded)
+        if cfg.family == "ssm":
+            return []
+        if cfg.family == "hybrid":
+            return [sw] * hybrid_layout(cfg)[0]
         if cfg.local_global:
             return [sw if i % 2 == 0 else full
                     for i in range(cfg.num_layers)]
         return [sw if cfg.sliding_window else full] * cfg.num_layers
 
+    def _maybe_remat(self, fn):
+        """``fn`` itself, or ``fn`` under activation checkpointing
+        (module docstring)."""
+        if self.remat == "none":
+            return fn
+        kw = {}
+        if self.remat == "dots":
+            kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                       _dots_saveable)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    def _units(self) -> List[List[int]]:
+        """The layers of each body the reference scans (and remats) as one:
+        gemma2's and llama4's pairs, else single layers."""
+        cfg = self.cfg
+        n = 2 if cfg.local_global or (cfg.is_moe and cfg.moe_every == 2) \
+            else 1
+        return [list(range(i, i + n)) for i in range(0, cfg.num_layers, n)]
+
     # -- forward (train / prefill) -------------------------------------------
     def forward(self, p, batch, collect_cache: bool = False):
         """Returns (hidden (B,S,d), the MoE stats (2E,) summed over the MoE
-        layers (None for the other families), per-layer [(k, v)] (MLA:
-        [(latent, k_rope)]) or None; an ``ssm`` model collects no cache, as
-        in the reference)."""
+        layers (None for the other families), per-attention-layer [(k, v)]
+        (MLA: [(latent, k_rope)]; hybrid: one per application of the shared
+        block) or None; an ``ssm`` model collects no cache, as in the
+        reference)."""
         cfg = self.cfg
         x = self._embed_inputs(p, batch)
+        blocks = p["blocks"]
+        mamba = self._maybe_remat(partial(apply_mamba_block, cfg=cfg))
         if cfg.family == "ssm":
-            for bp in p["blocks"]:
-                x = apply_mamba_block(bp, x, cfg)
+            for bp in blocks:
+                x = mamba(bp, x)
             x = L.apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
             return x, None, ([] if collect_cache else None)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        specs = self.layer_specs(self.folded)
         kvs, stats_sum = [], None
-        for bp, spec in zip(p["blocks"], self.layer_specs()):
-            x, stats, kv = apply_attn_block(bp, x, cfg, positions, spec,
+        if cfg.family == "hybrid":
+            k = cfg.shared_attn_every
+            ngroups, _ = hybrid_layout(cfg)
+
+            def group_body(x, bps, sa, spec):
+                for bp in bps:
+                    x = apply_mamba_block(bp, x, cfg)
+                x, _, kv = apply_attn_block(sa, x, cfg, positions, spec,
                                             self.attn_impl)
-            if stats is not None:
-                stats_sum = stats if stats_sum is None else stats_sum + stats
-            if collect_cache:
-                kvs.append(kv)
+                return x, kv
+            group = self._maybe_remat(group_body)
+            for g in range(ngroups):
+                x, kv = group(x, blocks[g * k:(g + 1) * k], p["shared_attn"],
+                              specs[g])
+                if collect_cache:
+                    kvs.append(kv)
+            for bp in blocks[ngroups * k:]:
+                x = mamba(bp, x)
+        else:
+            def unit_body(x, bps, unit_specs):
+                stats_u, kv_u = None, []
+                for bp, spec in zip(bps, unit_specs):
+                    x, stats, kv = apply_attn_block(bp, x, cfg, positions,
+                                                    spec, self.attn_impl)
+                    if stats is not None:
+                        stats_u = stats if stats_u is None \
+                            else stats_u + stats
+                    kv_u.append(kv)
+                return x, stats_u, kv_u
+            unit = self._maybe_remat(unit_body)
+            for idx in self._units():
+                x, stats, kv_u = unit(x, [blocks[i] for i in idx],
+                                      [specs[i] for i in idx])
+                if stats is not None:
+                    stats_sum = stats if stats_sum is None \
+                        else stats_sum + stats
+                if collect_cache:
+                    kvs.extend(kv_u)
         x = L.apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
         return x, stats_sum, (kvs if collect_cache else None)
 
@@ -289,13 +383,19 @@ class Transformer:
         ring) once ``max_len`` exceeds it.  An MLA layer holds
         ``{"latent" (B, max_len, kv_lora_rank), "krope" (B, max_len,
         qk_rope_dim)}``; an ``ssm`` layer its conv windows and its f32 state
-        (``ssm.init_ssm_cache``)."""
+        (``ssm.init_ssm_cache``).  A ``hybrid`` model's list is its
+        ``num_layers`` SSM caches in layer order, then one ``{"k", "v"}``
+        for each application of the shared block, in order (its window's
+        ring once ``max_len`` exceeds it)."""
         cfg = self.cfg
         dt = L.dtype_of(cfg.dtype)
         device = resolve_device(device)
-        if cfg.family == "ssm":
-            return [S.init_ssm_cache(cfg, batch, dt, device)
-                    for _ in range(cfg.num_layers)]
+        if cfg.family in ("ssm", "hybrid"):
+            ssm = [S.init_ssm_cache(cfg, batch, dt, device)
+                   for _ in range(cfg.num_layers)]
+            if cfg.family == "ssm":
+                return ssm
+        n_attn = len(self.layer_specs())
         if cfg.attention == "mla":
             return [{"latent": torch.zeros((batch, max_len, cfg.kv_lora_rank),
                                            dtype=dt, device=device),
@@ -304,15 +404,19 @@ class Transformer:
                     for _ in range(cfg.num_layers)]
         kvl = self.kv_len(max_len)
         shape = (batch, kvl, cfg.num_kv_heads, cfg.head_dim)
-        return [{"k": torch.zeros(shape, dtype=dt, device=device),
-                 "v": torch.zeros(shape, dtype=dt, device=device)}
-                for _ in range(cfg.num_layers)]
+        kv = [{"k": torch.zeros(shape, dtype=dt, device=device),
+               "v": torch.zeros(shape, dtype=dt, device=device)}
+              for _ in range(n_attn)]
+        return ssm + kv if cfg.family == "hybrid" else kv
 
     def _ring_for(self, cache) -> bool:
+        """Whether the attention caches are window-sized rings (the first
+        ``{"k", "v"}`` of the list decides, as the reference's)."""
         cfg = self.cfg
-        if not cfg.sliding_window or cfg.local_global or not cache:
+        if not cfg.sliding_window or cfg.local_global:
             return False
-        return cache[0]["k"].shape[-3] == cfg.sliding_window
+        kv = next((c for c in cache if "k" in c), None)
+        return kv is not None and kv["k"].shape[-3] == cfg.sliding_window
 
     def decode_step(self, p, cache, batch, pos: int):
         """One token for the whole batch.  batch: {'tokens': (B,1)} or
@@ -327,6 +431,18 @@ class Transformer:
             x = L.apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
             return self.logits(p, x), cache
         ring = self._ring_for(cache)
+        if cfg.family == "hybrid":
+            nl, k = cfg.num_layers, cfg.shared_attn_every
+            attn, specs = cache[nl:], self.layer_specs()
+            for i, (bp, c) in enumerate(zip(p["blocks"], cache[:nl])):
+                x, new = decode_mamba_block(bp, x, cfg, c)
+                c.update(new)
+                if (i + 1) % k == 0:        # a group's last layer (the
+                    g = i // k              # tail is shorter than k)
+                    x, _ = decode_attn_block(p["shared_attn"], x, cfg, pos,
+                                             attn[g], specs[g], ring=ring)
+            x = L.apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
+            return self.logits(p, x), cache
         for bp, c, spec in zip(p["blocks"], cache, self.layer_specs()):
             x, _ = decode_attn_block(bp, x, cfg, pos, c, spec, ring=ring)
         x = L.apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)

@@ -15,8 +15,8 @@ and raises without a CUDA device unless the caller passes ``"cpu"``.
 Not ported yet: the reference's ``xla.gemm`` / ``xla.other`` sub-events,
 which split ``train.step`` by XLA's HLO cost model: here
 ``StepBundle.gemm_frac`` is None, which the reference itself treats as
-"attribution unavailable" (a torch-side cost split is ROADMAP Queue 1
-item 1).
+"attribution unavailable" (a torch-side cost split waits for the
+port of ``launch/hlo_cost.py``, ROADMAP Queue 1 item 2).
 """
 from __future__ import annotations
 

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.transformer import (Transformer, param_leaves,
-                                            unflatten_like)
+from repro_torch.models.transformer import (Transformer, map_params,
+                                            param_leaves, unflatten_like)
 from repro_torch.optim.adamw import AdamW
 
 
@@ -43,17 +43,44 @@ def make_split_train_step(model: Transformer, opt: AdamW):
     return _grad_fn(model), opt_step
 
 
+def _accumulate(grad_step, params, batch, accum_steps: int):
+    """Gradient accumulation, as the reference's scan over micro-batches:
+    the batch is split on its leading axis into ``accum_steps`` equal
+    micro-batches, their gradients summed in fp32 and divided by
+    ``accum_steps``, and each metric (``loss`` included) averaged."""
+    n = next(iter(batch.values())).shape[0]
+    if n % accum_steps:
+        raise ValueError(f"batch {n} does not split into {accum_steps} "
+                         f"micro-batches")
+    gsum, ms = None, []
+    for part in zip(*(v.chunk(accum_steps, dim=0) for v in batch.values())):
+        grads, m = grad_step(params, dict(zip(batch, part)))
+        if gsum is None:
+            gsum = map_params(lambda g: g.float(), grads)
+        else:
+            for (_, acc), (_, g) in zip(param_leaves(gsum),
+                                        param_leaves(grads)):
+                acc.add_(g.float())
+        ms.append(m)
+    grads = map_params(lambda g: g / accum_steps, gsum)
+    metrics = {k: torch.stack([m[k].float() for m in ms]).mean()
+               for k in ms[0]}
+    return grads, metrics
+
+
 def make_train_step(model: Transformer, opt: AdamW, accum_steps: int = 1):
     """The fused step ``train_step(params, opt_state, batch) -> (params,
-    opt_state, metrics)``.  Gradient accumulation (``accum_steps > 1``) is
-    not ported yet (ROADMAP Queue 1 item 1)."""
-    if accum_steps != 1:
-        raise NotImplementedError("gradient accumulation is not ported yet: "
-                                  "ROADMAP Queue 1 item 1")
+    opt_state, metrics)``.  ``accum_steps > 1`` accumulates the gradients
+    of that many micro-batches (``_accumulate``): activation memory
+    follows the micro-batch."""
     grad_step = _grad_fn(model)
 
     def train_step(params, opt_state, batch):
-        grads, metrics = grad_step(params, batch)
+        if accum_steps == 1:
+            grads, metrics = grad_step(params, batch)
+        else:
+            grads, metrics = _accumulate(grad_step, params, batch,
+                                         accum_steps)
         params, opt_state, opt_metrics = opt.update(grads, opt_state, params)
         metrics.update(opt_metrics)
         return params, opt_state, metrics

@@ -236,8 +236,3 @@ def test_blocked_attention_on_cpu_equals_plain_k2():
     ref = flash_attention_reference(q, k, v, window=20, softcap=30.0)[0]
     torch.testing.assert_close(out, ref, rtol=0, atol=2e-6)
 
-
-def test_folded_schedule_is_not_ported():
-    q, k, v = (_t(a) for a in _qkv(8, 1, 64, 2, 2, 16))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        C.blocked_attention(q, k, v, C.AttnSpec(folded=True))

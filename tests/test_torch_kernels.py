@@ -13,6 +13,7 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS, MLA_HEAD_DIMS,
                                                  VARIANTS, flash_attention,
                                                  flash_attention_reference,
                                                  tma_strides, variant_for)
+from repro_torch.kernels.flash_attention import bound_ms as k2_bound_ms
 from repro_torch.kernels.pattern_summary import VARIANTS as K1_VARIANTS
 from repro_torch.kernels.pattern_summary import (WARP_MAX_N, block_grid,
                                                  bound_ms, lane_samples_for,
@@ -110,14 +111,14 @@ def test_k1_rejects_unknown_and_impossible_variants_without_launch():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", HEAD_DIMS)
 def test_k2_variant_rule(dtype, D):
-    """bf16 at D 64/128/256 runs the wgmma kernel; f32, and bf16 at D 16
-    and 32, the SIMT kernel."""
+    """bf16 at D 64/112/128/256 runs the wgmma kernel; f32, and bf16 at
+    D 16 and 32, the SIMT kernel."""
     want = "wgmma" if dtype == torch.bfloat16 and D >= 64 else "simt"
     assert variant_for(dtype, D) == want and want in VARIANTS
 
 
 def test_k2_variant_rule_rejects_what_k2_does_not_take():
-    for D in (0, 8, 48, 96, 112, 192, 512):
+    for D in (0, 8, 48, 96, 120, 192, 512):
         with pytest.raises(ValueError):
             variant_for(torch.bfloat16, D)
     for dtype in (torch.float16, torch.float64):
@@ -138,6 +139,28 @@ def test_k2_variant_rule_at_mla_head_dims():
                          (torch.bfloat16, 128, 192)):
         with pytest.raises(ValueError, match=f"\\({D}, {Dv}\\)"):
             variant_for(dtype, D, Dv)
+
+
+def test_k2_at_zamba2_head_dim():
+    """zamba2-7b's shared attention (32 heads of 112, 32 kv heads): bf16
+    on the wgmma kernel, f32 on the SIMT kernel, and its layer's bound at
+    2048 tokens, causal, window 4096 (wider than the sequence): 2 098 176
+    unmasked pairs x 32 heads x 4 x 112 FLOPs = 30.08 GFLOP at 989
+    TFLOP/s, against 59.0 MB at 3.35 TB/s.  The bound counts the real head
+    dim, not the 128-wide tiles it runs on."""
+    assert ARCHS["zamba2-7b"].head_dim == 112
+    assert variant_for(torch.bfloat16, 112) == "wgmma"
+    assert variant_for(torch.bfloat16, 112, 112) == "wgmma"
+    assert variant_for(torch.float32, 112) == "simt"
+    q = torch.empty((1, 2048, 32, 112), dtype=torch.bfloat16, device="meta")
+    ms, by = k2_bound_ms(q, q, window=4096)
+    flops = 2048 * 2049 // 2 * 32 * 4 * 112
+    assert flops == 30_079_451_136
+    assert by == "operations"
+    assert ms == pytest.approx(flops / 989e12 * 1e3, rel=1e-12)
+    assert ms == pytest.approx(0.0304, abs=5e-5)
+    nbytes = 4 * 2048 * 32 * 112 * 2 + 2048 * 32 * 4
+    assert nbytes / 3.35e12 * 1e3 == pytest.approx(0.0176, abs=5e-5)
 
 
 def test_tma_strides_of_dense_fused_and_degenerate_layouts():
@@ -414,6 +437,55 @@ def test_k2_at_mla_head_dims_matches_plain_version_on_card():
     with pytest.raises(ValueError, match="192, 128"):
         flash_attention(q.float(), k.float(), v.float())
     assert flash_attention.launches == before
+
+
+#: (B, S, H, KV, options) of K2 at head dim 112 (zamba2-7b: 32 heads, 32
+#: kv heads, window 4096): its training layer, the serve forward's 4 x 48,
+#: a length that is no multiple of the 64-row kv tile, 8192 tokens on 4
+#: heads where the window bites, and an even G (two heads a block)
+K2_112_CASES = [(1, 2048, 32, 32, dict(window=4096)),
+                (4, 48, 32, 32, dict(window=4096)),
+                (1, 200, 32, 32, dict(window=4096)),
+                (1, 8192, 4, 4, dict(window=4096)),
+                (2, 300, 4, 2, dict(window=100, softcap=30.0))]
+
+
+@pytest.mark.gpu
+def test_k2_at_head_dim_112_matches_plain_version_on_card():
+    """bf16 at D = Dv = 112 on the wgmma kernel (tiles of 128, columns
+    112-127 zero-filled by TMA and not stored): within one bf16 step of
+    the plain version and lse within 1e-5, also when q, k and v are views
+    of one fused projection (a store past column 112 would zero the next
+    head's first 16 columns).  f32 at 112 runs the SIMT kernel within
+    2e-5."""
+    _cuda()
+    for i, (B, S, H, KV, kw) in enumerate(K2_112_CASES):
+        q, k, v = _k2_inputs(60 + i, (B, S, H, 112), (B, S, KV, 112),
+                             torch.bfloat16)
+        before = flash_attention.launches_by_variant["wgmma"]
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        ref, ref_lse = flash_attention_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_variant["wgmma"] == before + 1
+        assert out.shape == (B, S, H, 112)
+        assert _bf16_within_limits(out, ref, lse, ref_lse), i
+        assert float((lse - ref_lse).abs().max()) < 1e-5, i
+    g = torch.Generator(device="cuda").manual_seed(7)
+    qkv = torch.randn((2, 130, 3, 8, 112), generator=g,
+                      device="cuda").bfloat16()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out, lse = flash_attention(q, k, v, return_lse=True, window=64)
+    ref, ref_lse = flash_attention_reference(q, k, v, window=64)
+    assert _bf16_within_limits(out, ref, lse, ref_lse)
+    q, k, v = _k2_inputs(70, (1, 256, 8, 112), (1, 256, 8, 112),
+                         torch.float32)
+    before = flash_attention.launches_by_variant["simt"]
+    out, lse = flash_attention(q, k, v, return_lse=True, window=100)
+    ref, ref_lse = flash_attention_reference(q, k, v, window=100)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_variant["simt"] == before + 1
+    assert float((out - ref).abs().max()) < 2e-5
+    assert float((lse - ref_lse).abs().max()) < 1e-5
 
 
 @pytest.mark.gpu

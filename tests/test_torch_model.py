@@ -188,12 +188,6 @@ def test_decode_logits_match_reference(arch, steps, tol):
         assert err <= tol * max(1.0, np.abs(rlog).max()), (pos, err)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b"])
-def test_families_not_ported_raise(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        Transformer(reduced(ARCHS[arch])).init(device="cpu")
-
-
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
                                   "llama4-maverick-400b-a17b"])
 def test_moe_family_builds_with_the_analytic_parameter_count(arch):
@@ -216,8 +210,3 @@ def test_moe_family_builds_with_the_analytic_parameter_count(arch):
         + ["moe"] * (cfg.num_layers - cfg.first_dense)
     assert kinds == want
     assert params["blocks"][-1]["moe"]["router"].dtype == torch.float32
-
-
-def test_remat_is_not_ported():
-    with pytest.raises(NotImplementedError, match="remat"):
-        Transformer(reduced(ARCHS["gemma2-2b"]), remat="full")
