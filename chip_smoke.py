@@ -38,13 +38,27 @@ these phases, each checked:
    ``score_mod`` and the causal/window block mask) and, for softcap 0,
    ``scaled_dot_product_attention``; at MLA's and zamba2's shapes beside
    SDPA with ``is_causal``, naming the backend it picked;
-4. the full gemma2-2b trainer (26 layers, full width, bf16 with fp32 AdamW
-   state) for 5 steps of batch 1 x 2048 tokens through
+4. ``[step cost]``: one reduced gemma2 step's cost (``launch.step_cost``)
+   counted on the card equal to its count on the CPU; then the full
+   gemma2-2b trainer (26 layers, full width, bf16 with fp32 AdamW state)
+   for 5 steps of batch 1 x 2048 tokens through
    ``Trainer.train_iteration``: 26 K2 launches a step, all of the wgmma
-   variant, finite losses;
+   variant, finite losses.  Every trainer phase first counts its step's
+   cost (FLOPs, bytes, collectives, ``gemm_frac``, the seconds the count
+   took, FLOPs over ``model_flops``) and checks that each timed
+   ``train.step`` holds one ``xla.gemm`` then one ``xla.other``;
 5. a 4-worker ``TrainerWorkload`` at gemma2-2b's full width cut to 2 layers,
    one window under ``DataloaderBurn`` and one under ``StepThrottle``, each
-   diagnosed on the card (every K2 launch of the windows wgmma);
+   diagnosed on the card (every K2 launch of the windows wgmma), the step
+   throttle localized to one of the reference's step functions
+   (``STEP_PHASES``, the ``xla.*`` sub-events included), which it names;
+   then ``[dist one-rank]``: a one-rank NCCL group and a (1, 1) mesh,
+   one gemma2-2b step at full width cut to 4 layers with ``dist`` against
+   one without (the reference's test_dist bounds; K2 ``wgmma`` launches
+   inside the attention core's local-shard region), deepseek-v2-lite-16b
+   cut to 4 layers through the expert-parallel branch against the local
+   one, ``psum_compressed`` in its three methods, and the
+   ``launch.train`` CLI for 3 steps with its PerfTracker report;
 6. K3 against its plain torch version (f32 on the shapes of the reference's
    kernel tests through the SIMT kernel; bf16 through the wgmma variant at
    mamba2-2.7b's layer shape, at a chunk whose upper-triangle decay
@@ -86,7 +100,8 @@ these phases, each checked:
    requests, K1 every window), each opening the slo incident
    ``SERVE_EXPECT`` names (the stall with its pad in worker 2's TBT);
    between them the ``moe`` family: ``[moe serve]``, the same check of
-   ``Engine.generate`` on deepseek-v2-lite-16b at its published widths and
+   ``Engine.generate`` (two generates giving the same tokens) on
+   deepseek-v2-lite-16b at its published widths and
    full depth (27 layers, 15.7 B parameters built on the card: MLA decode
    against the latent cache, 64 + 2 experts top-6), with its routing, cache
    bytes, bytes bound and decode profile; ``[moe pair]``, the check on one
@@ -170,17 +185,15 @@ MLA_SCALE = 192 ** -0.5  # deepseek-v2's attention: (nope 128 + rope 64)^-0.5
 TRAIN_SEQ = 2048     # the trainer's tokens per step (batch 1)
 TRAIN_STEPS = 5
 FLEET_ITERS = 8      # iterations per profiling window (the reference's IPW)
-#: the phases of the fenced step a StepThrottle incident may localize to
-#: (the reference's tests/test_train_workload.py STEP_FUNCTIONS, less the
-#: xla.* sub-events this port does not record; ROADMAP Queue 3 keeps the
-#: attribution to optimizer.step as an open fault of the diagnosis).
-#: train.step alone cannot be flagged in one window on the card: it fills
-#: most of a healthy
+#: the phases of the fenced step a StepThrottle incident may localize to:
+#: the reference's tests/test_train_workload.py STEP_FUNCTIONS, the
+#: cost-model sub-events xla.gemm / xla.other included.  train.step alone
+#: cannot be flagged in one window on the card: it fills most of a healthy
 #: iteration (about 72% on an H100 80GB HBM3 at 700 W, this script's
 #: [trainer fleet] lines), so however slow the step gets, its
 #: max-normalized beta moves by less than 1 - 0.72 < 0.4, the localizer's
 #: differential threshold; and it has no sampled stream to show a mu.
-STEP_PHASES = ("train.step", "optimizer.step")
+STEP_PHASES = ("train.step", "xla.gemm", "xla.other", "optimizer.step")
 
 MAMBA = "mamba2-2.7b"
 MAMBA_SEQ = 2048     # the mamba2 trainer's tokens per step (batch 1)
@@ -903,6 +916,14 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
           f"{cfg.d_model}, vocab {cfg.vocab_size}, batch 1 x {seq} "
           f"tokens; init {time.perf_counter() - t:.2f} s, state "
           f"{state_bytes} bytes on the card")
+    # the step's cost, counted once per bundle (Trainer.ensure_bundle)
+    # before any timed span: one extra forward and backward
+    t = time.perf_counter()
+    bundle = tr.ensure_bundle(params, tr._batch(tr.source.batch_at(0)))
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t
+    cost = step_cost_line(tag, cfg, seq, bundle, count_s)
+    torch.cuda.reset_peak_memory_stats()     # the steps' peak, not the count's
     tracer = Tracer(worker=0)
     tracer.start_window()
     reset_counts(*kernels)
@@ -926,6 +947,7 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
     if names != ["dataloader.next", "train.step",
                  "optimizer.step"] * TRAIN_STEPS:
         raise AssertionError(f"trainer phases {names}")
+    check_step_split(tag, prof, top)
     steps = []
     for i, (loss, gnorm) in enumerate(rows):
         d, s, o = (top[3 * i + j].duration for j in range(3))
@@ -950,7 +972,57 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
     torch.cuda.empty_cache()
     return dict(launches=launches, by_variant=by_variant, steps=steps,
                 peak=peak, state_bytes=state_bytes, profile=profile, aux=aux,
-                k2_by_variant=k2_k3[0], k3_by_variant=k2_k3[1])
+                k2_by_variant=k2_k3[0], k3_by_variant=k2_k3[1], cost=cost)
+
+
+def step_cost_line(tag, cfg, seq, bundle, count_s) -> dict:
+    """``[step cost]``: what ``launch.step_cost`` counted for the trainer's
+    step (FLOPs, bytes, collectives, ``gemm_frac``), the seconds the count
+    took, and the step's FLOPs over ``model_flops`` (6 N D)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.analysis import model_flops
+    cost = bundle.cost
+    if cost is None or bundle.gemm_frac is None:
+        raise AssertionError(f"{tag} the step's cost was not counted")
+    mf = model_flops(cfg, ShapeConfig("trainer", seq, 1, "train"))
+    out = dict(flops=cost.flops, bytes=cost.bytes,
+               coll_counts=dict(cost.coll_counts),
+               coll_bytes=dict(cost.coll_bytes), gemm_frac=bundle.gemm_frac,
+               count_s=count_s, model_flops=mf, ratio=cost.flops / mf,
+               detail_flops=dict(cost.detail_flops))
+    print(f"[step cost] {cfg.name} {cfg.num_layers} layers, 1 x {seq} "
+          f"tokens: {cost.flops:.6g} FLOPs ({', '.join(f'{k} {v:.6g}' for k, v in sorted(cost.detail_flops.items()))}), "
+          f"{cost.bytes:.6g} bytes, collectives {out['coll_counts']} "
+          f"{out['coll_bytes']}; gemm_frac {bundle.gemm_frac:.4f}; counted "
+          f"in {count_s:.2f} s; FLOPs / model_flops (6 N D = {mf:.6g}) "
+          f"{out['ratio']:.4f}")
+    if not (0.05 <= bundle.gemm_frac <= 0.95 and cost.flops > 0):
+        raise AssertionError(f"{tag} step cost {out}")
+    return out
+
+
+def check_step_split(tag, prof, top) -> None:
+    """Each fenced ``train.step`` holds one ``xla.gemm`` then one
+    ``xla.other`` at depth 2, within its bounds (the reference's
+    cost-model split)."""
+    steps = [e for e in top if e.name == "train.step"]
+    gemm = sorted((e for e in prof.events if e.name == "xla.gemm"),
+                  key=lambda e: e.start)
+    other = sorted((e for e in prof.events if e.name == "xla.other"),
+                   key=lambda e: e.start)
+    if not len(gemm) == len(other) == len(steps):
+        raise AssertionError(f"{tag} {len(steps)} train.step, {len(gemm)} "
+                             f"xla.gemm, {len(other)} xla.other")
+    for st, g, o in zip(steps, gemm, other):
+        if not (g.depth == o.depth == 2
+                and st.start <= g.start < g.end <= o.start < o.end
+                <= st.end):
+            raise AssertionError(f"{tag} xla.gemm / xla.other outside "
+                                 f"train.step")
+    print(f"[step cost] {tag} each of the {len(steps)} train.step spans "
+          f"holds one xla.gemm then one xla.other at depth 2: gemm "
+          f"{[round(g.duration, 4) for g in gemm]} s, other "
+          f"{[round(o.duration, 4) for o in other]} s")
 
 
 #: kernel-name fragments of the matrix products (cuBLAS / CUTLASS kernels)
@@ -1036,7 +1108,8 @@ def trainer_fleet_phase(K, K2, K3, ARCHS, TrainerWorkload, DataloaderBurn,
         k2 = K2.flash_attention.launches
         k2_wgmma = K2.flash_attention.launches_by_variant["wgmma"]
         samples = [len(p.streams["cpu"].values) for p in wd.profiles]
-        for fname in ("dataloader.next", "train.step", "optimizer.step"):
+        for fname in ("dataloader.next", "train.step", "xla.gemm",
+                      "xla.other", "optimizer.step"):
             pats = [summarize_profile(p, backend="numpy")[0][fname]
                     for p in wd.profiles]
             bms = [tuple(round(float(x), 4) for x in (p.beta, p.mu, p.sigma))
@@ -1062,11 +1135,14 @@ def trainer_fleet_phase(K, K2, K3, ARCHS, TrainerWorkload, DataloaderBurn,
             raise AssertionError(f"K2 launches in the window {k2}, "
                                  f"{k2_wgmma} of them wgmma")
         hit = [f for f in fns if flagged.get(f) == workers]
+        print(f"[trainer fleet] {name}{fault.workers} fires on {hit} of "
+              f"{list(fns)} (gemm_frac {wl.workers[0].trainer.bundle.gemm_frac:.4f})")
         planned = any(a == action and w in ([], workers) for a, w in plans)
         if not hit or not planned or k1 == 0:
             raise AssertionError(f"{name} not localized to {fns} on "
                                  f"{workers} with {action}")
-        out[name] = dict(flagged=flagged, plans=plans, samples=samples)
+        out[name] = dict(flagged=flagged, plans=plans, samples=samples,
+                         fired=hit)
     wl.close()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1652,11 +1728,9 @@ def engine_vs_forward(tag, cfg, K, K2, K3, prompt_len: int,
     their distance from the control, and each greedy token must be the K2
     forward's argmax wherever its top-2 margin exceeds that limit.  An MoE
     model's forward also reports its routing (``RouteLog``).  Two generates
-    of a dense model give the same tokens; an MoE model's combine
-    (``index_add_`` in bf16, atomics in no fixed order) may flip a near-tie
-    between runs, so the forward takes the recorded run's tokens and the
-    count of tokens that differ is printed.  Returns the engine, its prompts
-    and the readings; the caller frees the engine."""
+    give the same tokens, an MoE model's included (its combine adds each
+    token's rows in a fixed order, with no atomics).  Returns the engine,
+    its prompts and the readings; the caller frees the engine."""
     from repro_torch.models.layers import param_bytes
     from repro_torch.models.transformer import Transformer
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -1749,7 +1823,7 @@ def engine_vs_forward(tag, cfg, K, K2, K3, prompt_len: int,
     q3 = min(cfg.ssm_chunk, tok_dev.shape[1])
     k3_want = K3.variant_for(torch.bfloat16, cfg.ssm_head_dim,
                              cfg.ssm_state, q3) if n_ssd else "simt"
-    if (runs_differ and not cfg.is_moe) or k_decode != (0, 0, 0) \
+    if runs_differ or k_decode != (0, 0, 0) \
             or not np.isfinite(err) or not ctrl > 0 or err > limit \
             or not bool((agree | ~sure).all()) \
             or k2["wgmma"] != n_attn or k2["simt"] \
@@ -1971,8 +2045,9 @@ def hybrid_remat_phase(K, K2, K3, cfg, first, Trainer, TrainConfig,
     memory beside the first run's."""
     tr = Trainer(cfg, DataConfig(batch=1, seq_len=TRAIN_SEQ), OptConfig(),
                  TrainConfig(perftracker=False, remat="full"), device="cuda")
-    torch.cuda.reset_peak_memory_stats()
     params, opt_state, _ = tr.init_state()
+    tr.ensure_bundle(params, tr._batch(tr.source.batch_at(0)))  # the count
+    torch.cuda.reset_peak_memory_stats()
     reset_counts(K, K2, K3)
     rows, k2_steps, times = [], [], []
     for _ in range(ZAMBA_REMAT_STEPS):
@@ -2351,6 +2426,236 @@ def multiprocess_phase(K, K2, K3, ARCHS) -> dict:
     return out
 
 
+DIST_LAYERS = 4      # [dist one-rank]: gemma2-2b and deepseek at full width
+#: the reference's tests/test_dist.py bounds: sharded vs single-device loss
+#: and parameters after one step
+DIST_LOSS_TOL = 1e-3
+DIST_PARAM_TOL = 5e-3
+#: deepseek's expert-parallel branch vs the local one, max |grad diff| over
+#: the largest |grad| of the leaf (bf16: both run the same kernels on one
+#: rank, so this is the room for a different summation order only)
+DIST_MOE_GRAD_RTOL = 1e-2
+CLI_STEPS = 3
+
+
+def step_cost_phase(ARCHS) -> dict:
+    """``[step cost]``: the count of one reduced gemma2 step (f32, 2 x 128
+    tokens) on the card equals the count on the CPU: K2 counts by its FLOP
+    formula whichever path its forward takes, and the rest is the same
+    dispatched ops."""
+    from repro_torch.configs.registry import reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.step_cost import count_step
+    from repro_torch.models.transformer import Transformer, map_params
+    from repro_torch.optim.adamw import AdamW, OptConfig
+    from repro_torch.train.step import make_split_train_step
+    cfg = reduced(ARCHS["gemma2-2b"])
+    model = Transformer(cfg)
+    params = model.init(0, device="cpu")
+    grad_fn, _ = make_split_train_step(model, AdamW(OptConfig()))
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(
+        cfg, DataConfig(batch=2, seq_len=128)).batch_at(0).items()}
+    cpu = count_step(grad_fn, params, batch)
+    card = count_step(grad_fn, map_params(lambda t: t.cuda(), params),
+                      {k: v.cuda() for k, v in batch.items()})
+    print(f"[step cost] reduced gemma2 (2 layers, d_model 64, f32, 2 x 128 "
+          f"tokens): card {card.flops:.6g} FLOPs {card.bytes:.6g} bytes, "
+          f"CPU {cpu.flops:.6g} FLOPs {cpu.bytes:.6g} bytes")
+    if (card.flops, card.bytes, card.detail_flops) != \
+            (cpu.flops, cpu.bytes, cpu.detail_flops):
+        raise AssertionError("the step's count on the card differs from the "
+                             "CPU's")
+    return dict(flops=card.flops, bytes=card.bytes)
+
+
+def _leaf_rel_diff(a_tree, b_tree) -> float:
+    """max over leaves of max |a - b| / max |a| (b's leaves may be
+    DTensors)."""
+    from repro_torch.models.transformer import param_leaves
+    worst = 0.0
+    for (_, a), (_, b) in zip(param_leaves(a_tree), param_leaves(b_tree)):
+        b = b.full_tensor() if hasattr(b, "full_tensor") else b
+        d = float((a.float() - b.float()).abs().max())
+        worst = max(worst, d / max(float(a.float().abs().max()), 1e-30))
+    return worst
+
+
+def _max_abs_diff(a_tree, b_tree) -> float:
+    from repro_torch.models.transformer import param_leaves
+    return max(float((a.float() - (b.full_tensor() if hasattr(
+        b, "full_tensor") else b).float()).abs().max())
+        for (_, a), (_, b) in zip(param_leaves(a_tree), param_leaves(b_tree)))
+
+
+def dist_one_rank_phase(K, K2, K3, ARCHS) -> dict:
+    """``[dist one-rank]``: a one-rank NCCL process group and a (1, 1)
+    ``("data", "model")`` mesh.  gemma2-2b at full width cut to
+    ``DIST_LAYERS`` layers: one AdamW step with ``dist`` against one
+    without, from the same weights and batch (loss within 1e-3, parameters
+    within 5e-3: the reference's test_dist bounds), K2 launched as wgmma
+    inside the attention core's region; deepseek-v2-lite-16b cut to
+    ``DIST_LAYERS`` layers through the expert-parallel branch against the
+    local one (loss and every gradient); ``psum_compressed`` in its three
+    methods over the group; the ``launch.train`` CLI for ``CLI_STEPS``
+    steps of the gemma2 cut, with its PerfTracker report."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist.sharding import DistCtx
+    from repro_torch.launch import train as cli
+    from repro_torch.models import moe as M
+    from repro_torch.models.io import synth_batch
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim.adamw import AdamW, OptConfig
+    from repro_torch.optim.compress import (dequantize_int8, psum_compressed,
+                                            quantize_int8)
+    from repro_torch.train.step import make_split_train_step, make_train_step
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        d = DistCtx.from_mesh(mesh)
+        # gemma2-2b: one step with and without dist
+        cfg = ARCHS["gemma2-2b"].with_overrides(num_layers=DIST_LAYERS)
+        batch = synth_batch(cfg, "train", 1, TRAIN_SEQ, seed=0)
+        opt = AdamW(OptConfig())
+        m1 = Transformer(cfg)
+        p1 = m1.init(0)
+        s1 = opt.init(p1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p1, s1, met1 = make_train_step(m1, opt)(p1, s1, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        loss1 = float(met1["loss"])
+        del s1
+        torch.cuda.empty_cache()
+        m2 = Transformer(cfg, dist=d)
+        p2 = m2.init(0)
+        p2 = d.place(p2, d.params_shardings(p2))
+        s2 = opt.init(p2)
+        b2 = d.place(batch, d.batch_shardings(batch))
+        torch.cuda.synchronize()
+        reset_counts(K, K2, K3)
+        t = time.perf_counter()
+        p2, s2, met2 = make_train_step(m2, opt)(p2, s2, b2)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        k2 = dict(K2.flash_attention.launches_by_variant)
+        loss2 = float(met2["loss"].full_tensor())
+        pdiff = _max_abs_diff(p1, p2)
+        print(f"[dist one-rank] gemma2-2b at full width, {DIST_LAYERS} "
+              f"layers, 1 x {TRAIN_SEQ} tokens: loss without dist {loss1:.6f}"
+              f", with {loss2:.6f}; max |parameter diff| after the step "
+              f"{pdiff:.3g} (bounds {DIST_LOSS_TOL}, {DIST_PARAM_TOL}); the "
+              f"step {plain_s:.3f} s plain, {step_s:.3f} s sharded (host "
+              f"clock, each one call); K2 launches {k2}")
+        if not (abs(loss1 - loss2) < DIST_LOSS_TOL and pdiff < DIST_PARAM_TOL
+                and k2 == {"wgmma": DIST_LAYERS, "simt": 0}):
+            raise AssertionError("the one-rank sharded gemma2 step disagrees "
+                                 "with the plain one, or K2 did not run as "
+                                 "wgmma in its region")
+        out.update(loss=(loss1, loss2), param_diff=pdiff, k2=k2,
+                   step_s=step_s, plain_s=plain_s)
+        del p1, p2, s2, met1, met2, m1, m2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # deepseek: the expert-parallel branch against the local one
+        mcfg = ARCHS[MOE_ARCH].with_overrides(num_layers=DIST_LAYERS)
+        mbatch = synth_batch(mcfg, "train", 1, TRAIN_SEQ, seed=1)
+        mm1 = Transformer(mcfg)
+        mp = mm1.init(0)
+        g1, mt1 = make_split_train_step(mm1, opt)[0](mp, mbatch)
+        mm2 = Transformer(mcfg, dist=d)
+        ep_calls = []
+        real_ep = M._moe_expert_parallel
+
+        def counted_ep(*args):
+            ep_calls.append(1)
+            return real_ep(*args)
+        M._moe_expert_parallel = counted_ep
+        try:
+            reset_counts(K, K2, K3)
+            g2, mt2 = make_split_train_step(mm2, opt)[0](
+                d.place(mp, d.params_shardings(mp)),
+                d.place(mbatch, d.batch_shardings(mbatch)))
+            torch.cuda.synchronize()
+        finally:
+            M._moe_expert_parallel = real_ep
+        mk2 = dict(K2.flash_attention.launches_by_variant)
+        ml1, ml2 = float(mt1["loss"]), float(mt2["loss"].full_tensor())
+        grel = _leaf_rel_diff(g1, g2)
+        n_moe = sum(1 for bp in mp["blocks"] if "moe" in bp)
+        print(f"[dist one-rank] {MOE_ARCH} at full width, {DIST_LAYERS} "
+              f"layers ({n_moe} MoE, {mcfg.num_experts} experts top-"
+              f"{mcfg.top_k}): expert-parallel branch taken {len(ep_calls)} "
+              f"times; loss local {ml1:.6f}, expert-parallel {ml2:.6f}; "
+              f"max over leaves of max |grad diff| / max |grad| {grel:.3g} "
+              f"(tolerance {DIST_MOE_GRAD_RTOL}); K2 launches {mk2}")
+        if not (len(ep_calls) == n_moe and abs(ml1 - ml2) < DIST_LOSS_TOL
+                and grel < DIST_MOE_GRAD_RTOL
+                and mk2 == {"wgmma": DIST_LAYERS, "simt": 0}):
+            raise AssertionError("deepseek's expert-parallel branch disagrees "
+                                 "with the local one")
+        out.update(moe_loss=(ml1, ml2), moe_grad_rel=grel, moe_k2=mk2)
+        del mp, g1, g2, mt1, mt2, mm1, mm2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # compressed all-reduce over the one-rank group
+        g = torch.from_numpy(np.random.default_rng(0).normal(
+            0, 1, (4096,)).astype(np.float32)).cuda()
+        errs = {}
+        for method in ("none", "bf16", "int8"):
+            got, _ = psum_compressed({"g": g}, dist.group.WORLD, method)
+            want = {"none": g, "bf16": g.bfloat16().float(),
+                    "int8": dequantize_int8(*quantize_int8(g))}[method]
+            errs[method] = float((got["g"] - want).abs().max())
+        print(f"[dist one-rank] psum_compressed over the one-rank NCCL "
+              f"group, max |err| against the local round trip: {errs}")
+        if any(errs.values()):
+            raise AssertionError(f"psum_compressed on one rank {errs}")
+        out["psum_errs"] = errs
+
+        # the training CLI
+        reset_counts(K, K2, K3)
+        t = time.perf_counter()
+        trainer, res = cli.main(["--arch", "gemma2-2b", "--layers",
+                                 str(DIST_LAYERS), "--steps", str(CLI_STEPS),
+                                 "--batch", "1", "--seq", str(TRAIN_SEQ)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+        ck2 = dict(K2.flash_attention.launches_by_variant)
+        hist = trainer.history
+        print(f"[dist one-rank] launch.train CLI: gemma2-2b --layers "
+              f"{DIST_LAYERS} --steps {CLI_STEPS} --batch 1 --seq "
+              f"{TRAIN_SEQ} in {cli_s:.2f} s; logged {hist}; K2 launches "
+              f"{ck2}; PerfTracker report: "
+              + (res.report() if res is not None else
+                 "none (no diagnosis window opened: the detector learns the "
+                 f"iteration over more than {CLI_STEPS} steps)"))
+        if ck2 != {"wgmma": DIST_LAYERS * CLI_STEPS, "simt": 0} \
+                or not hist or not all(math.isfinite(h["loss"])
+                                       for h in hist):
+            raise AssertionError("the training CLI did not run its steps "
+                                 "through K2's wgmma variant")
+        out.update(cli_k2=ck2, cli_s=cli_s, cli_history=hist)
+        del trainer
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2609,7 +2914,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.lap("K2 time and breakdown")
 
-    # -- 6. the full gemma2-2b trainer: the main path of K2 -------------------
+    # -- 6. the step's cost on the card and on the CPU, then the full
+    # gemma2-2b trainer (the main path of K2, counted by [step cost]) -------
+    cost_check = step_cost_phase(ARCHS)
     tr = trainer_phase("[trainer]", ARCHS["gemma2-2b"], TRAIN_SEQ,
                        (K, K2, K3), "K2", K2.flash_attention, "flash_fwd",
                        Trainer, TrainConfig, DataConfig, OptConfig, Tracer)
@@ -2626,6 +2933,10 @@ def main() -> int:
                         PerfTrackerService, plan_mitigations,
                         summarize_profile)
     clock.lap("trainer fleet")
+
+    # -- 7b. distribution on a one-rank mesh, and the training CLI ----------
+    dist_run = dist_one_rank_phase(K, K2, K3, ARCHS)
+    clock.lap("dist one-rank")
 
     # -- 8. K3 against its plain version, and its times -----------------------
     k3_err = k3_checks(K3)
@@ -2787,6 +3098,11 @@ def main() -> int:
             "forward_vs_plain_forward": engine["gap"]},
         "multiprocess_trainer_child_launches_by_variant":
             mp_runs["trainer"]["launches"].get("flash_attention"),
+        "dist_one_rank_launches_by_variant": dist_run["k2"],
+        "dist_moe_launches_by_variant": dist_run["moe_k2"],
+        "train_cli_launches_by_variant": dist_run["cli_k2"],
+        "step_cost_flops": tr["cost"]["detail_flops"].get(
+            "flash_attention"),
         "mla_shape": {
             "shape": f"bf16 q/k (1, {TRAIN_SEQ}, 16, 192) v (1, {TRAIN_SEQ}, "
                      f"16, 128), causal: one deepseek-v2-lite-16b layer",
@@ -2846,6 +3162,7 @@ def main() -> int:
         "library_ms": None,
         "library_call": "none: no PyTorch call computes the SSD scan",
         "plain_backward_ms": k3_time["backward_ms"],
+        "step_cost_flops": mtr["cost"]["detail_flops"].get("ssd_scan"),
         "passes_ms": k3_time["passes_ms"],
         "zamba2": {
             "trainer_launches_by_variant": hyb_tr["k3_by_variant"],
@@ -2854,6 +3171,13 @@ def main() -> int:
             "serve_f32_forward_launches_by_variant":
                 hyb_serve["f32"]["k3"]},
     }]}))
+    print(f"[step cost] summary: " + json.dumps({
+        "card_vs_cpu_reduced_gemma2": cost_check,
+        **{name: {k: run["cost"][k] for k in ("flops", "bytes", "gemm_frac",
+                                              "count_s", "ratio")}
+           for name, run in (("gemma2-2b", tr), ("mamba2-2.7b", mtr),
+                             ("deepseek-v2-lite-16b x4", moe_tr),
+                             ("zamba2-7b x15", hyb_tr))}}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s; by phase "
           f"{clock.times}")
     print(card)

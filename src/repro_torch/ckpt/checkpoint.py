@@ -18,7 +18,11 @@ The on-disk format is the reference's, byte for byte, for the same tree:
   tensor the optimizer updates in place) and writes the files on a thread,
   so the training loop is not blocked;
 * ``restore`` reads the arrays and puts each leaf on the device and dtype
-  of the template's leaf;
+  of the template's leaf; with ``shardings`` (placements on a mesh that may
+  differ from the one at save time: elastic restore) each leaf becomes a
+  DTensor on its placements, and a DTensor template leaf keeps its own;
+* a DTensor leaf is saved whole (``full_tensor``, a collective every rank
+  of its mesh joins), and only global rank 0 writes the files;
 * the step directory is written as ``.tmp_step_<n>`` and renamed when it is
   complete, and a step directory whose ``meta.json`` or a leaf is missing or
   unreadable is never counted as a checkpoint.
@@ -51,8 +55,15 @@ class CheckpointError(RuntimeError):
     unreadable metadata, or a leaf absent (partial write)."""
 
 
+def _is_dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
-    """``(savable array, dtype name)`` of one leaf, copied off the device."""
+    """``(savable array, dtype name)`` of one leaf, copied off the device
+    (a DTensor gathered whole first)."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True).contiguous()
         name = _EXT_DTYPES.get(t.dtype)
@@ -124,6 +135,33 @@ def _unflatten_into(template, flat: Dict[str, torch.Tensor], prefix: str = ""):
     return type(template)(v for _, v in out)
 
 
+def _place(tree, template, shardings):
+    """``tree``'s leaves as DTensors where ``shardings`` names a placement
+    (or, without one, where the template's leaf is a DTensor)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        if shardings is None and _is_dtensor(template):
+            mesh, placements = template.device_mesh, template.placements
+        elif shardings is not None:
+            mesh, placements = shardings.mesh, shardings.placements
+        else:
+            return tree
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(tree, mesh, placements, src_data_rank=None)
+    kids = _children(tree)
+    if kids is None:
+        return tree
+    out = []
+    for k, sub in kids:
+        tsub = template[k]
+        ssub = None if shardings is None else shardings[k]
+        out.append((k, _place(sub, tsub, ssub)))
+    if isinstance(tree, dict):
+        return dict(out)
+    return type(tree)(v for _, v in out)
+
+
 def _leaf_file(d: Path, key: str) -> Path:
     return d / (key.replace("/", "__") + ".npy")
 
@@ -146,7 +184,12 @@ class Checkpointer:
         """Copy to the host + write. With async_, the device->host copy
         happens inline and file IO goes to a background thread."""
         self.wait()
-        flat = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        leaves = _flatten(tree)
+        flat = {k: _to_host(v) for k, v in leaves.items()}
+        if any(_is_dtensor(v) for v in leaves.values()):
+            import torch.distributed as dist
+            if dist.is_initialized() and dist.get_rank() != 0:
+                return                  # rank 0 writes the gathered tree
         meta = {"step": step,
                 "extra": extra or {},
                 "leaves": {k: {"shape": list(a.shape), "dtype": name}
@@ -226,11 +269,17 @@ class Checkpointer:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, step: int, template) -> Tuple[Any, dict]:
+    def restore(self, step: int, template, shardings=None
+                ) -> Tuple[Any, dict]:
         """Restore ``step`` into ``template``'s structure, each leaf on the
         device and dtype of the template's leaf (the current devices, not
-        those at save time).  Raises ``CheckpointError`` when the step dir
-        is torn or corrupt, or does not fit the template."""
+        those at save time).  ``shardings`` (a tree matching ``template``
+        of ``dist.sharding.NamedSharding``) may name a DIFFERENT mesh than
+        at save time; each leaf becomes a DTensor on its placements, every
+        rank keeping its own shard of the file's array.  Without it, a
+        DTensor template leaf gives a DTensor on the leaf's own mesh and
+        placements.  Raises ``CheckpointError`` when the step dir is torn
+        or corrupt, or does not fit the template."""
         self.wait()
         d = self.dir / f"step_{step}"
         meta = self._read_meta(d)
@@ -242,4 +291,5 @@ class Checkpointer:
                 raise CheckpointError(f"{d.name}: unreadable leaf "
                                       f"{k!r} ({e})")
             flat[k] = _from_savable(arr, info["dtype"])
-        return _unflatten_into(template, flat), meta
+        tree = _unflatten_into(template, flat)
+        return _place(tree, template, shardings), meta

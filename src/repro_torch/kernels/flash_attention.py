@@ -207,8 +207,10 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
     lsum = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
     out = torch.einsum("btkgs,bskd->btkgd", p, v.float()) / lsum
     lse = (m + torch.log(lsum))[..., 0]
-    return (out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype),
-            lse.reshape(B, Sq, H))
+    # contiguous, as the kernel writes them: what a backward does with
+    # them (a reshape copies or not) then does not depend on the device
+    return (out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype).contiguous(),
+            lse.reshape(B, Sq, H).contiguous())
 
 
 class FlashAttention:

@@ -20,7 +20,8 @@ devices compute one function.  The reference has no backward kernel, so the
 backward recomputes the plain version under autograd and returns the
 gradients of x, dt, A, Bm and Cm.  The plain version masks every decay
 difference before its exponential, so its gradients stay finite where the
-upper triangle would overflow.
+upper triangle would overflow.  While ``launch.step_cost`` counts a step,
+the forward counts as K3 by ``ssd_flops``, whichever path runs it.
 
 Which kernel runs is one fixed rule, ``variant_for(dtype, P, N, Q)``,
 decided before any launch:
@@ -60,6 +61,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import tma_strides
+from repro_torch.launch.step_cost import kernel_call
 
 SOURCE = _build.CSRC / "ssd_scan.cu"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -149,7 +151,7 @@ def ssd_scan_reference(x, dt, A, Bm, Cm, chunk: int = 128) -> torch.Tensor:
     prev = torch.stack(starts, dim=1)                          # (B,c,G,r,N,P)
     y = y + torch.einsum("bctgn,bcgrnp->bctgrp", Cf, prev) \
         * torch.exp(cum)[..., None]
-    return y.reshape(B, S, H, P).to(x.dtype)
+    return y.reshape(B, S, H, P).to(x.dtype).contiguous()
 
 
 def ssd_oracle(x, dt, A, Bm, Cm) -> torch.Tensor:
@@ -352,7 +354,10 @@ class _SSDScan(torch.autograd.Function):
     def forward(ctx, x, dt, A, Bm, Cm, chunk: int):
         ctx.save_for_backward(x, dt, A, Bm, Cm)
         ctx.chunk = chunk
-        return ssd_scan.run(x, dt, A, Bm, Cm, chunk)
+        return kernel_call("ssd_scan",
+                           lambda: ssd_scan.run(x, dt, A, Bm, Cm, chunk),
+                           lambda: ssd_flops(x, Bm, chunk),
+                           (x, dt, A, Bm, Cm))
 
     @staticmethod
     def backward(ctx, dy):

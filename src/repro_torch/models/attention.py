@@ -5,8 +5,12 @@ the card), sliding-window and logit-softcap variants (gemma2), MLA
 single-token decode paths against a KV cache or MLA's latent cache (port of
 the reference's ``repro/models/attention.py``).
 
-Distribution (``dist``) and phantom-head padding are not ported (ROADMAP
-Queue 1 item 2).
+With ``dist`` (a ``dist.sharding.DistCtx``) the activations are DTensors.
+The attention core runs in a ``dist.compat.shard_map`` region with batch
+over the data-parallel dims and heads over the model dim
+(``constrain_heads``), because DTensor has no sharding rule for K2; the
+rest propagates through DTensor's own rules.  ``pad_heads`` pads the heads
+with phantoms to a multiple of the model dim, as the reference does.
 """
 from __future__ import annotations
 
@@ -19,8 +23,6 @@ from repro_torch.models.attention_core import (  # noqa: F401
     NEG_INF, AttnSpec, _mask, blocked_attention)
 
 Tensor = torch.Tensor
-
-_DIST = "distributed attention is not ported: ROADMAP Queue 1 item 2"
 
 
 # ---------------------------------------------------------------------------
@@ -59,7 +61,8 @@ def init_mla(gen, cfg, dtype=torch.float32, device=None):
 def _proj(x: Tensor, w: Tensor) -> Tensor:
     """``einsum("bsd,dhx->bshx")`` as one matrix product."""
     d, h, e = w.shape
-    return (x @ w.reshape(d, h * e)).unflatten(-1, (h, e))
+    y = x @ L.reshape(w, (d, h * e))
+    return L.reshape(y, y.shape[:-1] + (h, e))
 
 
 def _qkv(p, x: Tensor, cfg, positions: Tensor):
@@ -73,7 +76,7 @@ def _qkv(p, x: Tensor, cfg, positions: Tensor):
 def _out(o: Tensor, wo: Tensor) -> Tensor:
     """``einsum("bshx,hxd->bsd")`` as one matrix product."""
     h, e, d = wo.shape
-    return o.flatten(-2) @ wo.reshape(h * e, d)
+    return L.reshape(o, o.shape[:-2] + (h * e,)) @ L.reshape(wo, (h * e, d))
 
 
 def attention_ref(q, k, v, spec: AttnSpec, q_offset=0, kv_len=None):
@@ -96,6 +99,37 @@ def attention_ref(q, k, v, spec: AttnSpec, q_offset=0, kv_len=None):
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
+def attention_core(impl, q: Tensor, k: Tensor, v: Tensor, spec: AttnSpec,
+                   dist=None) -> Tensor:
+    """``impl(q, k, v, spec)``; under ``dist`` on DTensors, in a local-shard
+    region with q and the output constrained to ``constrain_heads``, and k,
+    v sharded alike (GQA k/v are first expanded to one head per q head
+    where their own heads do not divide the model dim)."""
+    if dist is None or dist.mesh is None:
+        return impl(q, k, v, spec)
+    from repro_torch.dist.compat import shard_map
+    from repro_torch.dist.sharding import P
+    q = dist.constrain_heads(q)
+    qs = dist.heads_spec(q)
+    H, KV = q.shape[2], k.shape[2]
+    if qs[2] is not None and KV % dist.tp_size:
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    ks = list(qs)
+    core = shard_map(lambda ql, kl, vl: impl(ql, kl, vl, spec),
+                     mesh=dist.mesh, in_specs=(P(*qs), P(*ks), P(*ks)),
+                     out_specs=P(*qs))
+    return dist.constrain_heads(core(q, k, v))
+
+
+def _pad_heads(t: Tensor, Hp: int, dim: int) -> Tensor:
+    """``t`` with zero heads appended along ``dim`` up to ``Hp``."""
+    shape = list(t.shape)
+    shape[dim] = Hp - shape[dim]
+    return torch.cat([t, torch.zeros_like(t.narrow(dim, 0, 1)).expand(
+        shape)], dim=dim)
+
+
 # ---------------------------------------------------------------------------
 # GQA block apply
 # ---------------------------------------------------------------------------
@@ -103,11 +137,24 @@ def attention_ref(q, k, v, spec: AttnSpec, q_offset=0, kv_len=None):
 def apply_gqa(p, x: Tensor, cfg, positions: Tensor, spec: AttnSpec,
               impl=blocked_attention, dist=None, pad_heads=False):
     """Returns (attention output (B, S, d), (k, v))."""
-    if dist is not None or pad_heads:
-        raise NotImplementedError(_DIST)
     q, k, v = _qkv(p, x, cfg, positions)
-    out = impl(q, k, v, spec)
-    return _out(out, p["wo"]), (k, v)
+    H, KV = q.shape[2], k.shape[2]
+    wo = p["wo"]
+    tp = dist.tp_size if dist is not None else 1
+    if pad_heads and dist is not None and tp > 1 and H % tp != 0:
+        # PHANTOM-HEAD PADDING (the reference's EXPERIMENTS §Perf H2):
+        # expand GQA kv to one head per q head and zero-pad q/k/v/wo to the
+        # next multiple of tp so every attention tensor shards evenly.
+        # Phantom heads have zero v and zero wo rows, so outputs and
+        # gradients are exact.
+        G = H // KV
+        Hp = -(-H // tp) * tp
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+        q, k, v = (_pad_heads(t, Hp, 2) for t in (q, k, v))
+        wo = _pad_heads(wo, Hp, 0)
+    out = attention_core(impl, q, k, v, spec, dist)
+    return _out(out, wo), (k, v)
 
 
 def gqa_decode(p, x: Tensor, cfg, pos: int, k_cache: Tensor,
@@ -173,8 +220,6 @@ def apply_mla(p, x: Tensor, cfg, positions: Tensor, spec: AttnSpec,
     q and k reach ``impl`` as ``(B, S, H, nope + rope)`` and v as ``(B, S,
     H, v_head_dim)``, all contiguous (K2's TMA reads them as they are).
     Returns (output (B, S, d), (latent, k_rope (B, S, ro)))."""
-    if dist is not None:
-        raise NotImplementedError(_DIST)
     B, S, _ = x.shape
     H, nope, ro = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     q = _proj(x, p["wq"])
@@ -184,7 +229,10 @@ def apply_mla(p, x: Tensor, cfg, positions: Tensor, spec: AttnSpec,
     v = _proj(latent, p["wv_up"])
     qc = torch.cat([q[..., :nope], q_rope], dim=-1)
     kc = torch.cat([k_nope, k_rope.expand(B, S, H, ro)], dim=-1)
-    out = impl(qc, kc, v, spec._replace(scale=_mla_scale(cfg)))
+    if dist is not None:
+        qc, kc, v = (dist.constrain_heads(t) for t in (qc, kc, v))
+    out = attention_core(impl, qc, kc, v, spec._replace(scale=_mla_scale(cfg)),
+                         dist)
     return _out(out, p["wo"]), (latent, k_rope[:, :, 0])
 
 

@@ -118,6 +118,33 @@ def init_mlp(gen, d: int, ff: int, kind: str, use_bias: bool,
     return p
 
 
+class _EvenReshape(torch.autograd.Function):
+    """A DTensor reshape that first replicates what it would shard
+    unevenly, in the forward and in the backward
+    (``dist.sharding.even_for_reshape``)."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        from repro_torch.dist.sharding import even_for_reshape
+        ctx.shape = x.shape
+        return even_for_reshape(x, shape).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.dist.sharding import even_for_reshape
+        return even_for_reshape(g, ctx.shape).reshape(ctx.shape), None
+
+
+def reshape(t: Tensor, shape) -> Tensor:
+    """``t.reshape(shape)``; under a mesh (a DTensor) the reshape cannot
+    fail on a dim that DTensor chose to shard unevenly for it
+    (``_EvenReshape``)."""
+    shape = tuple(shape)
+    if type(t).__name__ == "DTensor":
+        return _EvenReshape.apply(t, shape)
+    return t.reshape(shape)
+
+
 def gelu(x: Tensor) -> Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
@@ -127,7 +154,8 @@ def apply_mlp(p, x: Tensor, kind: str) -> Tensor:
     wi = p["wi"]
     if kind in ("swiglu", "geglu"):
         d, _, ff = wi.shape
-        h = (x @ wi.reshape(d, 2 * ff)).unflatten(-1, (2, ff))
+        h = x @ reshape(wi, (d, 2 * ff))
+        h = reshape(h, h.shape[:-1] + (2, ff))
         if "bi" in p:
             h = h + p["bi"]
         gate, up = h[..., 0, :], h[..., 1, :]

@@ -132,8 +132,28 @@ def ssd_k3(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     return ssd_scan(x, dt, A, Bm, Cm, chunk), None
 
 
-def apply_mamba2(p, x: Tensor, cfg, impl=ssd_k3) -> Tensor:
-    """Full Mamba2 block (train/prefill)."""
+def _scan_region(impl, dist, chunk: int):
+    """``impl`` under ``dist``: a local-shard region with batch over the
+    data-parallel dims (DTensor has no sharding rule for K3).  A's
+    gradient is a partial sum on each data shard."""
+    from torch.distributed.tensor import Partial
+
+    from repro_torch.dist.compat import shard_map
+    from repro_torch.dist.sharding import P
+    dpe = dist._dp_entry() if dist.dp_size > 1 else None
+    x4 = P(dpe, None, None, None)
+    specs = (x4, P(dpe, None, None), P(None), x4, x4)
+    a_grad = tuple(Partial() if a in dist.dp_axes else pl for a, pl in
+                   zip(dist.axis_names, dist.placements(P(None))))
+    return shard_map(lambda *t: impl(*t, chunk)[0], mesh=dist.mesh,
+                     in_specs=specs,
+                     in_grad_specs=specs[:2] + (a_grad,) + specs[3:],
+                     out_specs=x4)
+
+
+def apply_mamba2(p, x: Tensor, cfg, impl=ssd_k3, dist=None) -> Tensor:
+    """Full Mamba2 block (train/prefill).  Under ``dist`` the scan runs in a
+    local-shard region (``_scan_region``)."""
     di, N, G, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_groups, cfg.ssm_heads
     P = cfg.ssm_head_dim
     Bsz, S, _ = x.shape
@@ -150,7 +170,10 @@ def apply_mamba2(p, x: Tensor, cfg, impl=ssd_k3) -> Tensor:
     Cm = Cm.reshape(Bsz, S, G, N)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    y, _ = impl(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
+    if dist is not None and dist.mesh is not None:
+        y = _scan_region(impl, dist, cfg.ssm_chunk)(xs, dt, A, Bm, Cm)
+    else:
+        y, _ = impl(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
     y = y + xs.float() * p["D"][:, None]
     y = y.reshape(Bsz, S, di).to(x.dtype)
     y = y * F.silu(z)

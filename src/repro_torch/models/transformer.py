@@ -37,11 +37,18 @@ same work on the card.
 ``None`` means the card (``core.service.resolve_device``), and they raise
 without one unless the caller asks for ``"cpu"``.
 
-Not ported yet (raises ``NotImplementedError``): the ``dist`` context and
-phantom-head padding (ROADMAP Queue 1 item 2).
+``dist`` (a ``dist.sharding.DistCtx``) enters as in the reference: the
+activations are constrained (``constrain_act``) after the embedding and
+after each residual add, the logits to ``constrain_logits``, the attention
+core and the SSD scan run in local-shard regions, and the MoE layer runs
+expert-parallel.  Under ``dist`` the parameters and the batch are DTensors
+(the trainer places them); plain tensors made inside the forward, such as
+positions and masks, count as replicated (``implicit_replication``).
+``pad_heads`` turns on the reference's phantom-head padding.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from functools import partial
 from typing import Any, Dict, List, Optional
 
@@ -121,31 +128,37 @@ def init_attn_block(gen, cfg, device=None, d_ff=None, moe=False):
     return p
 
 
-def _ffn(bp, h, cfg):
+def _constrain(x, dist):
+    return dist.constrain_act(x) if dist is not None else x
+
+
+def _ffn(bp, h, cfg, dist=None):
     """The block's MLP or MoE: (output, MoE stats or None)."""
     if "moe" in bp:
-        return M.apply_moe(bp["moe"], h, cfg)
+        return M.apply_moe(bp["moe"], h, cfg, dist)
     return L.apply_mlp(bp["mlp"], h, cfg.mlp), None
 
 
-def apply_attn_block(bp, x, cfg, positions, spec, impl=A.blocked_attention):
+def apply_attn_block(bp, x, cfg, positions, spec, impl=A.blocked_attention,
+                     dist=None, pad_heads=False):
     """Returns (x, MoE stats or None, (k, v)-like cache entries)."""
     h = L.apply_norm(bp["ln1"], x, cfg.norm, cfg.norm_eps)
     if cfg.attention == "mla":
-        a, kv = A.apply_mla(bp["attn"], h, cfg, positions, spec, impl)
+        a, kv = A.apply_mla(bp["attn"], h, cfg, positions, spec, impl, dist)
     else:
-        a, kv = A.apply_gqa(bp["attn"], h, cfg, positions, spec, impl)
+        a, kv = A.apply_gqa(bp["attn"], h, cfg, positions, spec, impl, dist,
+                            pad_heads)
     if cfg.post_norms:
         a = L.apply_norm(bp["ln1p"], a, cfg.norm, cfg.norm_eps)
-    x = x + a
+    x = _constrain(x + a, dist)
     h = L.apply_norm(bp["ln2"], x, cfg.norm, cfg.norm_eps)
-    m, stats = _ffn(bp, h, cfg)
+    m, stats = _ffn(bp, h, cfg, dist)
     if cfg.post_norms:
         m = L.apply_norm(bp["ln2p"], m, cfg.norm, cfg.norm_eps)
-    return x + m, stats, kv
+    return _constrain(x + m, dist), stats, kv
 
 
-def decode_attn_block(bp, x, cfg, pos, cache, spec, ring=False):
+def decode_attn_block(bp, x, cfg, pos, cache, spec, ring=False, dist=None):
     """One token through the block; the layer's cache is written in
     place."""
     h = L.apply_norm(bp["ln1"], x, cfg.norm, cfg.norm_eps)
@@ -159,7 +172,7 @@ def decode_attn_block(bp, x, cfg, pos, cache, spec, ring=False):
         a = L.apply_norm(bp["ln1p"], a, cfg.norm, cfg.norm_eps)
     x = x + a
     h = L.apply_norm(bp["ln2"], x, cfg.norm, cfg.norm_eps)
-    m, _ = _ffn(bp, h, cfg)
+    m, _ = _ffn(bp, h, cfg, dist)
     if cfg.post_norms:
         m = L.apply_norm(bp["ln2p"], m, cfg.norm, cfg.norm_eps)
     return x + m, cache
@@ -171,9 +184,10 @@ def init_mamba_block(gen, cfg, device=None):
             "mamba": S.init_mamba2(gen, cfg, dt, device)}
 
 
-def apply_mamba_block(bp, x, cfg):
+def apply_mamba_block(bp, x, cfg, dist=None):
     h = L.apply_norm(bp["ln"], x, cfg.norm, cfg.norm_eps)
-    return x + S.apply_mamba2(bp["mamba"], h, cfg)
+    return _constrain(x + S.apply_mamba2(bp["mamba"], h, cfg, dist=dist),
+                      dist)
 
 
 def decode_mamba_block(bp, x, cfg, cache):
@@ -195,13 +209,20 @@ class Transformer:
             raise ValueError(f"unknown family {cfg.family!r}")
         if remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
-        if dist is not None or pad_heads:
-            raise NotImplementedError("the distribution context is not "
-                                      "ported yet: ROADMAP Queue 1 item 2")
         self.cfg = cfg
+        self.dist = dist
         self.attn_impl = attn_impl or A.blocked_attention
         self.remat = remat
         self.folded = folded
+        self.pad_heads = pad_heads
+
+    def replicating(self):
+        """Under ``dist``, plain tensors meet DTensors as replicated ones
+        (``dist.sharding.replicating``); a null context otherwise."""
+        if self.dist is None or self.dist.mesh is None:
+            return nullcontext()
+        from repro_torch.dist.sharding import replicating
+        return replicating()
 
     # -- init ---------------------------------------------------------------
     def init(self, seed: int = 0, device=None) -> Dict[str, Any]:
@@ -251,7 +272,8 @@ class Transformer:
         if batch.get("tokens") is not None:
             parts.append(L.embed_lookup(p["embed"], batch["tokens"].long(),
                                         cfg.scale_embed, cfg.d_model).to(dt))
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        return _constrain(x, self.dist)
 
     def layer_specs(self, folded: bool = False) -> List[A.AttnSpec]:
         """The attention spec of every attention layer, in order (a hybrid
@@ -290,6 +312,10 @@ class Transformer:
 
     # -- forward (train / prefill) -------------------------------------------
     def forward(self, p, batch, collect_cache: bool = False):
+        with self.replicating():
+            return self._forward(p, batch, collect_cache)
+
+    def _forward(self, p, batch, collect_cache: bool = False):
         """Returns (hidden (B,S,d), the MoE stats (2E,) summed over the MoE
         layers (None for the other families), per-attention-layer [(k, v)]
         (MLA: [(latent, k_rope)]; hybrid: one per application of the shared
@@ -298,7 +324,9 @@ class Transformer:
         cfg = self.cfg
         x = self._embed_inputs(p, batch)
         blocks = p["blocks"]
-        mamba = self._maybe_remat(partial(apply_mamba_block, cfg=cfg))
+        dist, impl = self.dist, self.attn_impl
+        mamba = self._maybe_remat(partial(apply_mamba_block, cfg=cfg,
+                                          dist=dist))
         if cfg.family == "ssm":
             for bp in blocks:
                 x = mamba(bp, x)
@@ -313,9 +341,9 @@ class Transformer:
 
             def group_body(x, bps, sa, spec):
                 for bp in bps:
-                    x = apply_mamba_block(bp, x, cfg)
+                    x = apply_mamba_block(bp, x, cfg, dist)
                 x, _, kv = apply_attn_block(sa, x, cfg, positions, spec,
-                                            self.attn_impl)
+                                            impl, dist, self.pad_heads)
                 return x, kv
             group = self._maybe_remat(group_body)
             for g in range(ngroups):
@@ -330,7 +358,8 @@ class Transformer:
                 stats_u, kv_u = None, []
                 for bp, spec in zip(bps, unit_specs):
                     x, stats, kv = apply_attn_block(bp, x, cfg, positions,
-                                                    spec, self.attn_impl)
+                                                    spec, impl, dist,
+                                                    self.pad_heads)
                     if stats is not None:
                         stats_u = stats if stats_u is None \
                             else stats_u + stats
@@ -351,16 +380,26 @@ class Transformer:
     def logits(self, p, hidden):
         cfg = self.cfg
         head = p["embed"]["table"] if cfg.tie_embeddings else p["lm_head"]
-        return L.lm_logits(head, hidden, cfg.logit_softcap)
+        out = L.lm_logits(head, hidden, cfg.logit_softcap)
+        return self.dist.constrain_logits(out) if self.dist is not None \
+            else out
 
     # -- losses ---------------------------------------------------------------
     def loss(self, p, batch):
+        with self.replicating():
+            return self._loss(p, batch)
+
+    def _loss(self, p, batch):
         cfg = self.cfg
         hidden, stats, _ = self.forward(p, batch)
         logits = self.logits(p, hidden)
+        if self.dist is not None:
+            # the loss reads whole vocab rows: DTensor's gather over a
+            # vocab-sharded dim fails, so gather the vocab back first
+            logits = self.dist.constrain_act(logits)
         labels = batch["labels"]
         nll, ntok = L.cross_entropy(logits, labels, cfg.vocab_size)
-        aux = torch.zeros((), device=nll.device)
+        aux = torch.zeros_like(nll)
         if stats is not None and cfg.is_moe:
             total_tokens = labels.shape[0] * labels.shape[1] \
                 * max(1, n_moe_layers(cfg))
@@ -419,6 +458,10 @@ class Transformer:
         return kv is not None and kv["k"].shape[-3] == cfg.sliding_window
 
     def decode_step(self, p, cache, batch, pos: int):
+        with self.replicating():
+            return self._decode_step(p, cache, batch, pos)
+
+    def _decode_step(self, p, cache, batch, pos: int):
         """One token for the whole batch.  batch: {'tokens': (B,1)} or
         {'embeds': (B,1,d)}; pos: the current position.  Updates ``cache``
         in place; returns (logits (B,1,V), cache)."""
@@ -440,11 +483,13 @@ class Transformer:
                 if (i + 1) % k == 0:        # a group's last layer (the
                     g = i // k              # tail is shorter than k)
                     x, _ = decode_attn_block(p["shared_attn"], x, cfg, pos,
-                                             attn[g], specs[g], ring=ring)
+                                             attn[g], specs[g], ring=ring,
+                                             dist=self.dist)
             x = L.apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
             return self.logits(p, x), cache
         for bp, c, spec in zip(p["blocks"], cache, self.layer_specs()):
-            x, _ = decode_attn_block(bp, x, cfg, pos, c, spec, ring=ring)
+            x, _ = decode_attn_block(bp, x, cfg, pos, c, spec, ring=ring,
+                                     dist=self.dist)
         x = L.apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
         return self.logits(p, x), cache
 

@@ -65,14 +65,22 @@ class AdamW:
         self.cfg = cfg
 
     def init(self, params) -> Dict[str, Any]:
-        f32 = lambda t: torch.zeros(t.shape, dtype=torch.float32,  # noqa: E731
-                                    device=t.device)
+        """Zero moments and fp32 master weights shaped, and placed, like
+        ``params`` (a DTensor leaf gives DTensor state on its placements:
+        ZeRO-sharded with the parameters)."""
+        f32 = lambda t: torch.zeros_like(t, dtype=torch.float32)  # noqa: E731
         first = next(param_leaves(params))[1]
         return {"m": map_params(f32, params), "v": map_params(f32, params),
                 "master": map_params(lambda t: t.detach().float().clone(),
                                      params),
                 "step": torch.zeros((), dtype=torch.int32,
                                     device=first.device)}
+
+    def state_shardings(self, param_shardings, replicated):
+        """Placements of the optimizer state given the parameters':
+        ``replicated`` for the step counter."""
+        return {"m": param_shardings, "v": param_shardings,
+                "master": param_shardings, "step": replicated}
 
     @torch.no_grad()
     def update(self, grads, state, params) -> Tuple[Any, Dict[str, Any],

@@ -13,7 +13,11 @@ reference's.
 
 Device policy: the engine runs on ``device`` (``None`` means ``"cuda"``) and
 raises without a CUDA device unless the caller passes ``"cpu"``.  The
-parameters are the caller's, on that device.
+parameters are the caller's, on that device.  With ``dist`` (a
+``dist.sharding.DistCtx`` with a mesh) the model runs under it and each
+cache is placed by ``cache_shardings`` (batch over the data-parallel dims);
+the parameters are then the caller's DTensors or plain tensors, and the
+tokens come back whole on every rank.
 """
 from __future__ import annotations
 
@@ -43,12 +47,11 @@ class ServeConfig:
 class Engine:
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig,
                  dist=None, device=None):
-        if dist is not None:
-            raise NotImplementedError("distributed serving is not ported "
-                                      "yet: ROADMAP Queue 1 item 2")
         self.cfg, self.sc = cfg, sc
         self.device = resolve_device(device)
-        self.model = Transformer(cfg)
+        self.dist = dist if dist is not None and dist.mesh is not None \
+            else None
+        self.model = Transformer(cfg, dist=self.dist)
         self.params = params
         self._step = make_serve_step(self.model)
         self.pt: Optional[PerfTracker] = None
@@ -61,6 +64,9 @@ class Engine:
         sc = self.sc
         B, P = prompts.shape
         cache = self.model.init_cache(B, sc.max_len, device=self.device)
+        if self.dist is not None:
+            cache = self.dist.place(cache,
+                                    self.dist.cache_shardings(cache, B))
         gen = None
         if sc.temperature > 0:
             gen = torch.Generator(device=self.device)
@@ -89,6 +95,8 @@ class Engine:
                 nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
             else:
                 nxt = torch.argmax(lg, dim=-1)
+            if self.dist is not None and hasattr(nxt, "full_tensor"):
+                nxt = nxt.full_tensor()     # every rank holds the tokens
             if t >= P - 1:
                 new.append(nxt)
         out = np.asarray(prompts, np.int32)

@@ -5,18 +5,21 @@
 ``TrainerWorkload`` (``repro_torch.train.workload``) drives: every phase of
 a real step — ``dataloader.next`` / ``train.step`` (forward + backward,
 ended by a device synchronize on the gradients) / ``optimizer.step`` /
-``ckpt.save`` — is recorded as a Tracer event.  With ``ckpt_dir`` the
+``ckpt.save`` — is recorded as a Tracer event, and the forward + backward
+span is split into ``xla.gemm`` / ``xla.other`` depth-2 sub-events by the
+step's cost (``launch.step_cost``), under the reference's names: the
+host sees no per-op boundaries inside the fenced span, so the split is
+the cost model's attribution (DESIGN.md §11).  With ``ckpt_dir`` the
 trainer saves every ``ckpt_every`` steps (async), resumes from the latest
 valid step, and a ``ROLLBACK_TO_CHECKPOINT`` plan restores it.
 
 Device policy: the trainer runs on ``device`` (``None`` means ``"cuda"``)
 and raises without a CUDA device unless the caller passes ``"cpu"``.
 
-Not ported yet: the reference's ``xla.gemm`` / ``xla.other`` sub-events,
-which split ``train.step`` by XLA's HLO cost model: here
-``StepBundle.gemm_frac`` is None, which the reference itself treats as
-"attribution unavailable" (a torch-side cost split waits for the
-port of ``launch/hlo_cost.py``, ROADMAP Queue 1 item 2).
+With ``dist`` (a ``dist.sharding.DistCtx``) the parameters are placed by
+``params_shardings`` (ZeRO-3 over the data-parallel mesh dims), the
+optimizer state follows them (always fully sharded), and each batch is
+placed by ``batch_shardings`` in ``dataloader.next``.
 """
 from __future__ import annotations
 
@@ -36,9 +39,28 @@ from repro_torch.core.service import resolve_device
 from repro_torch.data.pipeline import DataConfig, DataLoader, SyntheticLM
 from repro_torch.instrument.hooks import PerfTracker, PerfTrackerConfig
 from repro_torch.instrument.tracer import sync
+from repro_torch.launch.step_cost import count_step
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim.adamw import AdamW, OptConfig
 from repro_torch.train.step import make_split_train_step, make_train_step
+
+
+#: roofline that splits the fenced step between the "xla.gemm" and
+#: "xla.other" sub-events (the reference's constants: they set only the
+#: split ratio, identical across same-program workers, not a speed)
+_ROOFLINE_FLOPS_S = 5e10
+_ROOFLINE_BYTES_S = 2e10
+
+
+def gemm_fraction(cost) -> Optional[float]:
+    """The share of the step the ``xla.gemm`` sub-event takes: FLOPs over
+    ``_ROOFLINE_FLOPS_S`` against bytes over ``_ROOFLINE_BYTES_S``,
+    clamped to [0.05, 0.95]; None for a step that costs nothing."""
+    t_gemm = cost.flops / _ROOFLINE_FLOPS_S
+    t_other = cost.bytes / _ROOFLINE_BYTES_S
+    if t_gemm + t_other <= 0.0:
+        return None
+    return min(0.95, max(0.05, t_gemm / (t_gemm + t_other)))
 
 
 @contextmanager
@@ -48,11 +70,13 @@ def _noop_phase(name, kind=None, depth=1, fence=None, resource=""):
 
 @dataclass
 class StepBundle:
-    """The split step's two halves, shareable across same-shape trainers.
-    ``gemm_frac`` is always None here (module docstring)."""
+    """The split step's two halves, shareable across same-shape trainers,
+    and the ``xla.gemm`` share of the fenced step (None when the step's
+    cost could not be counted)."""
     grad_step: Callable
     opt_step: Callable
     gemm_frac: Optional[float] = None
+    cost: Optional[object] = None        # launch.step_cost.Cost
 
 
 @dataclass
@@ -72,12 +96,12 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, data: DataConfig,
                  opt_cfg: OptConfig, tc: TrainConfig, dist=None,
                  device=None):
-        if dist is not None:
-            raise NotImplementedError("distributed training is not ported "
-                                      "yet: ROADMAP Queue 1 item 2")
         self.device = resolve_device(device)
         self.cfg, self.data_cfg, self.tc = cfg, data, tc
-        self.model = Transformer(cfg, remat=tc.remat, folded=tc.folded)
+        self.dist = dist if dist is not None and dist.mesh is not None \
+            else None
+        self.model = Transformer(cfg, dist=self.dist, remat=tc.remat,
+                                 folded=tc.folded)
         self.opt = AdamW(opt_cfg)
         self.source = SyntheticLM(cfg, data)
         self.loader = DataLoader(self.source)
@@ -118,7 +142,10 @@ class Trainer:
         checkpoint of ``ckpt_dir`` restored into them; returns
         ``(params, opt_state, start_step)``."""
         params = self.model.init(self.tc.seed, device=self.device)
-        opt_state = self.opt.init(params)
+        if self.dist is not None:
+            params = self.dist.place(params,
+                                     self.dist.params_shardings(params))
+        opt_state = self.opt.init(params)   # placed like the parameters
         start = 0
         if self.ckpt and resume:
             latest = self.ckpt.latest_step()
@@ -129,19 +156,43 @@ class Trainer:
         return params, opt_state, start
 
     def _restore(self, step, params, opt_state):
+        shardings = None
+        if self.dist is not None:
+            # every leaf needs a real placement: scalar opt state rides the
+            # mesh replicated
+            ps = self.dist.params_shardings(params)
+            shardings = self.dist.named(
+                {"params": ps, "opt": self.opt.state_shardings(
+                    ps, self.dist.replicated())})
         tree, meta = self.ckpt.restore(step, {"params": params,
-                                              "opt": opt_state})
+                                              "opt": opt_state},
+                                       shardings=shardings)
         return (tree["params"], tree["opt"]), meta
 
     def _batch(self, batch_np):
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in batch_np.items()}
+        batch = {k: torch.from_numpy(v).to(self.device)
+                 for k, v in batch_np.items()}
+        if self.dist is not None:
+            batch = self.dist.place(batch, self.dist.batch_shardings(batch))
+        return batch
 
     # ------------------------------------------------------------------
-    def ensure_bundle(self) -> StepBundle:
+    def ensure_bundle(self, params, batch) -> StepBundle:
+        """Build (or return) the split-step bundle.  Building it counts the
+        cost of one ``grad_step(params, batch)`` (``launch.step_cost``) to
+        set ``gemm_frac``, as the reference reads its compiled module's:
+        one extra forward and backward per bundle, run before any timed
+        span.  ``gemm_frac`` stays None only where the count raises."""
         if self.bundle is None:
             grad_fn, opt_fn = make_split_train_step(self.model, self.opt)
-            self.bundle = StepBundle(grad_step=grad_fn, opt_step=opt_fn)
+            gemm_frac, cost = None, None
+            try:
+                cost = count_step(grad_fn, params, batch)
+                gemm_frac = gemm_fraction(cost)
+            except Exception:
+                gemm_frac = None          # attribution is best-effort
+            self.bundle = StepBundle(grad_step=grad_fn, opt_step=opt_fn,
+                                     gemm_frac=gemm_frac, cost=cost)
         return self.bundle
 
     def train_iteration(self, params, opt_state, tracer=None):
@@ -150,7 +201,8 @@ class Trainer:
         Every phase is a genuine host-visible span: ``dataloader.next``
         (PYTHON, including the copy of the batch to the device),
         ``train.step`` (forward + backward, ended by a device synchronize
-        on the gradients), ``optimizer.step`` (fenced on the new params),
+        on the gradients, split into ``xla.gemm`` / ``xla.other`` depth-2
+        sub-events by the step's cost), ``optimizer.step`` (fenced on the new params),
         and ``ckpt.save`` when a checkpoint interval hits.
         ``tracer`` may be None or inactive — the loop then runs unobserved.
         Returns ``(params, opt_state, metrics)``; the optimizer updates the
@@ -163,7 +215,7 @@ class Trainer:
                 x = 1.0
                 while time.perf_counter() < deadline:
                     x = x * 1.0000001 + 1.0
-        bundle = self.ensure_bundle()
+        bundle = self.ensure_bundle(params, batch)
         res = self._step_resource
         t0 = time.perf_counter()
         grads, metrics = bundle.grad_step(params, batch)
@@ -174,6 +226,12 @@ class Trainer:
         if tracer is not None and tracer.active:
             tracer.add_event("train.step", Kind.GPU, t0, t1, depth=1,
                              resource=res)
+            if bundle.gemm_frac is not None:
+                cut = t0 + (t1 - t0) * bundle.gemm_frac
+                tracer.add_event("xla.gemm", Kind.GPU, t0, cut, depth=2,
+                                 resource=res)
+                tracer.add_event("xla.other", Kind.GPU, cut, t1, depth=2,
+                                 resource=res)
         with ph("optimizer.step", Kind.GPU, resource=res,
                 fence=lambda: new_params):
             new_params, new_opt, opt_metrics = bundle.opt_step(

@@ -21,8 +21,9 @@ def _grad_fn(model: Transformer):
         for t in leaves:
             t.requires_grad_(True)
         try:
-            loss, metrics = model.loss(params, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            with model.replicating():       # the backward meets them too
+                loss, metrics = model.loss(params, batch)
+                grads = torch.autograd.grad(loss, leaves)
         finally:
             for t in leaves:
                 t.requires_grad_(False)

@@ -78,6 +78,20 @@ def test_plain_version_variants_match_pallas_kernel(kw):
     assert np.abs(out.numpy() - np.asarray(exp)).max() < 2e-5
 
 
+@pytest.mark.parametrize("Sq,Skv", [(128, 256), (256, 128), (128, 384)])
+@pytest.mark.parametrize("kw", [dict(), dict(window=100), dict(causal=False),
+                                dict(softcap=20.0)])
+def test_plain_version_matches_pallas_kernel_at_unequal_lengths(Sq, Skv, kw):
+    """q and k/v of different lengths, at G = 3 (6 q heads, 2 kv heads):
+    positions count from 0 on both sides, as the Pallas kernel's do."""
+    q, k, v = _qkv(2, 1, Sq, 6, 2, 32, Skv=Skv)
+    exp = ops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              block_q=64, block_k=64, **kw)
+    out = flash_attention(_t(q), _t(k), _t(v), **kw)
+    assert tuple(out.shape) == exp.shape == (1, Sq, 6, 32)
+    assert np.abs(out.numpy() - np.asarray(exp)).max() < 2e-5
+
+
 def test_wrapper_on_cpu_runs_plain_version_without_launch():
     q, k, v = (_t(a) for a in _qkv(2, 1, 64, 4, 2, 16))
     before = flash_attention.launches

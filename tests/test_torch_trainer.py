@@ -5,7 +5,9 @@
   on the same byte-identical batches, within 1e-4; the loss falls over 30
   steps.
 * The tracer records ``dataloader.next`` / ``train.step`` /
-  ``optimizer.step`` in order, with the stream set ``{"cpu"}``.
+  ``optimizer.step`` in order, with the stream set ``{"cpu"}``, and splits
+  each ``train.step`` into ``xla.gemm`` then ``xla.other`` at depth 2 by
+  the step's cost, as the reference does.
 * A 4-worker ``TrainerWorkload`` window under a live fault, diagnosed by the
   port's ``PerfTrackerService`` in fleet mode, localizes the fault as
   tests/test_train_workload.py does for the reference.
@@ -81,9 +83,20 @@ def test_tracer_phases_present_and_ordered(wl4):
         ["dataloader.next", "train.step", "optimizer.step"] * 3
     for a, b in zip(top, top[1:]):
         assert a.end <= b.start + 1e-9
-    # no cost-model split of train.step (gemm_frac is None)
-    assert tw.trainer.bundle.gemm_frac is None
-    assert not [e for e in prof.events if e.name.startswith("xla.")]
+    # cost-model attribution: depth-2 sub-events split each fenced
+    # train.step span, gemm first, boundaries inside the parent
+    assert tw.trainer.bundle.gemm_frac is not None
+    assert 0.05 <= tw.trainer.bundle.gemm_frac <= 0.95
+    steps = [e for e in top if e.name == "train.step"]
+    gemm = sorted((e for e in prof.events if e.name == "xla.gemm"),
+                  key=lambda e: e.start)
+    other = sorted((e for e in prof.events if e.name == "xla.other"),
+                   key=lambda e: e.start)
+    assert len(gemm) == len(other) == len(steps) == 3
+    for s, g, o in zip(steps, gemm, other):
+        assert g.depth == o.depth == 2
+        assert s.start <= g.start < g.end <= o.start < o.end <= s.end
+        assert g.resource == o.resource == "cpu"
     assert all(e.resource == "cpu" for e in top if e.name != "dataloader.next")
     assert prof.packed is not None
 
@@ -139,14 +152,48 @@ def test_trainer_without_cuda_raises_unless_cpu_is_asked(monkeypatch):
 
 
 def test_parts_not_ported_raise():
-    """Distributed training waits for its slice (checkpointing and
-    ``ParamCorruption`` are ported: tests/test_torch_ckpt.py; so is the
-    multi-process trainer worker, ``trainer_worker_main``:
-    tests/test_torch_multiprocess_more.py; gradient accumulation:
-    tests/test_torch_remat.py)."""
+    """Distributed training is ported: ``Trainer(dist=DistCtx(...))`` on a
+    one-rank ``gloo`` mesh gives the undistributed trainer's losses, its
+    parameters are DTensors and its optimizer state follows them.  (The
+    name is kept from when ``dist=`` raised; the 8-rank twins of
+    tests/test_dist.py are tests/test_torch_dist.py.)"""
+    import socket
+
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.sharding import DistCtx
     mc, dc, oc, tc = tiny_train_setup()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        Trainer(mc, dc, oc, tc, dist=object(), device="cpu")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                             rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        losses = {}
+        for name, dist in (("plain", None),
+                           ("dist", DistCtx.from_mesh(mesh))):
+            tr = Trainer(mc, dc, oc, tc, dist=dist, device="cpu")
+            params, opt_state, _ = tr.init_state(resume=False)
+            losses[name] = []
+            for _ in range(3):
+                params, opt_state, m = tr.train_iteration(params, opt_state)
+                loss = m["loss"]
+                losses[name].append(float(loss.full_tensor()
+                                          if isinstance(loss, DTensor)
+                                          else loss))
+            tr.loader.close()
+            leaf = params["embed"]["table"]
+            assert isinstance(leaf, DTensor) == (dist is not None)
+            if dist is not None:
+                assert isinstance(opt_state["m"]["embed"]["table"], DTensor)
+        np.testing.assert_allclose(losses["dist"], losses["plain"],
+                                   rtol=1e-6, atol=0)
+    finally:
+        tdist.destroy_process_group()
     assert callable(trainer_worker_main)
 
 
