@@ -47,6 +47,14 @@ these phases, each checked:
    cost (FLOPs, bytes, collectives, ``gemm_frac``, the seconds the count
    took, FLOPs over ``model_flops``) and checks that each timed
    ``train.step`` holds one ``xla.gemm`` then one ``xla.other``;
+   ``[dryrun]`` (``launch.dryrun``): that step traced on fake tensors
+   through K2's fake implementation, its count equal to the real count on
+   the card exactly, its peak of live bytes against
+   ``max_memory_allocated`` (``DRYRUN_MEM_TOL``; the same check must fail
+   without the optimizer state), and ``DRYRUN_CELLS`` through ``python -m
+   repro_torch.launch.dryrun``, each in its own process on a fake
+   256- or 512-rank group; ``[examples]``: ``examples_torch/``'s ring
+   fault, ``train_lm`` and ``serve_lm`` on the card, their lines checked;
 5. a 4-worker ``TrainerWorkload`` at gemma2-2b's full width cut to 2 layers,
    one window under ``DataloaderBurn`` and one under ``StepThrottle``, each
    diagnosed on the card (every K2 launch of the windows wgmma), the step
@@ -145,6 +153,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -218,6 +227,29 @@ K3_PROFILED_CALLS = 3
 K3_TEST_SHAPES = [(1, 64, 2, 16, 1, 8, 16), (2, 128, 4, 32, 2, 16, 32),
                   (1, 128, 4, 64, 4, 32, 64), (1, 32, 2, 16, 2, 16, 32)]
 K3_F32_TOL = 2e-5    # max |err| / max |ref|, the reference's own limit
+#: [dryrun]'s cells through ``python -m repro_torch.launch.dryrun`` (arch,
+#: shape, mesh), each in its own process, all at once
+DRYRUN_CELLS = (("gemma2-2b", "train_4k", "single"),
+                ("deepseek-v2-lite-16b", "decode_32k", "single"),
+                ("mamba2-2.7b", "long_500k", "multi"))
+DRYRUN_TIMEOUT = 240.0
+#: the dry run's peak of live bytes of the gemma2-2b trainer step against
+#: ``max_memory_allocated`` on the card: |ratio - 1| within this
+DRYRUN_MEM_TOL = 0.02     # 0.9972 on an H100 80GB HBM3 at 700 W (PERF.md)
+#: [examples]: each script of examples_torch/ with its arguments, and the
+#: lines its output must hold
+EXAMPLE_RUNS = {
+    "diagnose_ring_fault": ["diagnose_ring_fault.py"],
+    "train_lm": ["train_lm.py", "--steps", "40"],
+    "serve_lm": ["serve_lm.py"],
+}
+EXAMPLE_EXPECT = {
+    "diagnose_ring_fault": ["AllGather_RING                           {9}",
+                            "mitigation: replace_hosts [9]"],
+    "train_lm": ["(improved)", "checkpoints: [20, 30, 40]"],
+    "serve_lm": ["generated (4, 48)"],
+}
+EXAMPLE_TIMEOUT = 120.0
 
 
 def gpu_line() -> str:
@@ -972,7 +1004,8 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
     torch.cuda.empty_cache()
     return dict(launches=launches, by_variant=by_variant, steps=steps,
                 peak=peak, state_bytes=state_bytes, profile=profile, aux=aux,
-                k2_by_variant=k2_k3[0], k3_by_variant=k2_k3[1], cost=cost)
+                k2_by_variant=k2_k3[0], k3_by_variant=k2_k3[1], cost=cost,
+                step_cost=bundle.cost)
 
 
 def step_cost_line(tag, cfg, seq, bundle, count_s) -> dict:
@@ -1966,6 +1999,11 @@ def serve_engine_phase(K, K2, K3, ARCHS) -> dict:
                                     "[serve engine]")
     run["position_ab"] = position_copy_ab(run["engine"], run["prompts"])
     free_engine(run)
+    # the bf16 check passes under both decode faults of
+    # tools/hybrid_decode_mutants.py (a fault moves the control as much as
+    # the decode): the f32 rerun is the check that can fail
+    run["f32"] = f32_decode_vs_forward("[serve engine]", ARCHS["gemma2-2b"],
+                                       K, K2, K3, ENGINE_PROMPT, ENGINE_NEW)
     return run
 
 
@@ -2656,6 +2694,150 @@ def dist_one_rank_phase(K, K2, K3, ARCHS) -> dict:
     return out
 
 
+def start_script(args: list, log: Path):
+    """A Python subprocess of this checkout (``PYTHONPATH=src``), its
+    output to ``log``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env,
+                            stdout=log.open("w"), stderr=subprocess.STDOUT)
+
+
+def finish_scripts(runs: dict, timeout: float) -> dict:
+    """Waits for each ``(Popen, log, started)`` of ``runs``; returns each
+    one's (exit code, output, wall seconds).  A run still going at
+    ``timeout`` is killed and fails."""
+    out, end = {}, time.perf_counter() + timeout
+    for name, (p, log, t0) in runs.items():
+        try:
+            rc = p.wait(timeout=max(1.0, end - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = p.wait()
+        out[name] = (rc, log.read_text(), time.perf_counter() - t0)
+    return out
+
+
+def dryrun_phase(ARCHS, tr) -> dict:
+    """``[dryrun]`` (``launch.dryrun``): the step ``[trainer]`` ran,
+    traced on fake tensors through K2's fake implementation on the card's
+    route, counted equal to that step's real count on the card, exactly
+    (FLOPs, bytes, and both by op); the dry peak of live bytes of the
+    whole step (parameters, gradients, AdamW state, activations) against
+    ``max_memory_allocated`` over the trainer's steps, within
+    ``DRYRUN_MEM_TOL``, and the same check failing on an estimate that
+    leaves out the optimizer state; then ``DRYRUN_CELLS`` through
+    ``python -m repro_torch.launch.dryrun``, each in a process of its own
+    (a fake process group of 256 or 512 ranks), each printing its
+    ``[ok]`` line."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.step_cost import count_step
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim.adamw import AdamW, OptConfig
+    from repro_torch.train.step import make_split_train_step
+    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    runs = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        name = f"{mesh} {arch} {shape}"
+        log = logs / f"{mesh}__{arch}__{shape}.log"
+        runs[name] = (start_script(
+            ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--mesh", mesh, "--out", str(logs), "--force"], log),
+            log, time.perf_counter())
+
+    cfg = ARCHS["gemma2-2b"]
+    real = tr["step_cost"]
+    grad_fn, _ = make_split_train_step(Transformer(cfg), AdamW(OptConfig()))
+    host = SyntheticLM(cfg, DataConfig(batch=1, seq_len=TRAIN_SEQ)
+                       ).batch_at(0)
+    t = time.perf_counter()
+    with FakeTensorMode():
+        params = Transformer(cfg).init(0, device="cuda")
+        batch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
+                                device="cuda") for k, v in host.items()}
+        dry = count_step(grad_fn, params, batch)
+    count_s = time.perf_counter() - t
+    diff = {k: (getattr(real, k), getattr(dry, k))
+            for k in ("flops", "bytes", "detail_flops", "detail_bytes",
+                      "coll_counts") if getattr(real, k) != getattr(dry, k)}
+    print(f"[dryrun] {cfg.name} trainer step (1 x {TRAIN_SEQ}): dry count "
+          f"{dry.flops:.6g} FLOPs, {dry.bytes:.6g} bytes (flash_attention "
+          f"{dry.detail_flops.get('flash_attention', 0):.6g} FLOPs by its "
+          f"fake implementation), traced in {count_s:.2f} s; real count on "
+          f"the card {real.flops:.6g} FLOPs, {real.bytes:.6g} bytes; equal "
+          f"by op: {not diff}")
+    if diff or not dry.detail_flops.get("flash_attention"):
+        raise AssertionError(f"[dryrun] dry count != real count: {diff}")
+
+    shape = ShapeConfig("trainer", TRAIN_SEQ, 1, "train")
+    t = time.perf_counter()
+    low, _ = D.lower_cell(cfg.name, shape.name, False, cfg=cfg, shape=shape,
+                          mesh_shape=(), device="cuda")
+    _, arg_bytes, peak, _ = D.trace(low)
+    trace_s = time.perf_counter() - t
+    opt_bytes = D.local_bytes(low.args[1])
+    ratio = peak / tr["peak"]
+    ratio_no_opt = (peak - opt_bytes) / tr["peak"]
+    ok = abs(ratio - 1.0) <= DRYRUN_MEM_TOL
+    ok_no_opt = abs(ratio_no_opt - 1.0) <= DRYRUN_MEM_TOL
+    print(f"[dryrun] memory: dry peak {peak} bytes (arguments {arg_bytes}, "
+          f"of which AdamW state {opt_bytes}; traced in {trace_s:.2f} s) vs "
+          f"max_memory_allocated {tr['peak']} bytes over [trainer]'s steps: "
+          f"ratio {ratio:.4f} (tolerance {DRYRUN_MEM_TOL}: "
+          f"{'pass' if ok else 'FAIL'}); without the optimizer state "
+          f"{ratio_no_opt:.4f} ({'pass' if ok_no_opt else 'fails'}, as it "
+          f"must)")
+    if not ok or ok_no_opt:
+        raise AssertionError("[dryrun] memory estimate vs the card")
+
+    cells = {}
+    for name, (rc, text, wall) in finish_scripts(runs, DRYRUN_TIMEOUT
+                                                 ).items():
+        line = next((ln for ln in text.splitlines()
+                     if ln.startswith(("[ok]", "[FAIL]"))), "no report")
+        print(f"[dryrun] {name}: {line} ({wall:.1f} s, exit {rc})")
+        if rc != 0 or not line.startswith("[ok]"):
+            raise AssertionError(f"[dryrun] {name} failed:\n{text[-3000:]}")
+        cells[name] = wall
+    shutil.rmtree(logs, ignore_errors=True)
+    return dict(count_s=count_s, flops=dry.flops,
+                k2_flops=dry.detail_flops["flash_attention"], ratio=ratio,
+                ratio_no_opt=ratio_no_opt, peak=peak, real_peak=tr["peak"],
+                cells=cells)
+
+
+def examples_phase() -> dict:
+    """``[examples]`` (``examples_torch/``, on the card): the ring fault
+    (worker 9 on ``AllGather_RING``, ``replace_hosts [9]``), a short
+    ``train_lm`` (loss lower, checkpoints written) and ``serve_lm``
+    (tokens generated), each a process of its own, run together."""
+    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    runs = {}
+    for name, args in EXAMPLE_RUNS.items():
+        args = [str(ROOT / "examples_torch" / args[0]), *args[1:]]
+        if name == "train_lm":
+            args += ["--ckpt-dir", str(logs / "train_lm_ckpt")]
+        log = logs / f"{name}.log"
+        runs[name] = (start_script(args, log), log, time.perf_counter())
+    out = {}
+    for name, (rc, text, wall) in finish_scripts(runs, EXAMPLE_TIMEOUT
+                                                 ).items():
+        missing = [w for w in EXAMPLE_EXPECT[name] if w not in text]
+        print(f"[examples] {name}: exit {rc}, {wall:.1f} s; expected lines "
+              f"{'all present' if not missing else f'MISSING {missing}'}")
+        for ln in text.splitlines():
+            if any(w in ln for w in EXAMPLE_EXPECT[name]):
+                print(f"[examples]   {ln.strip()}")
+        if rc != 0 or missing:
+            raise AssertionError(f"[examples] {name}:\n{text[-3000:]}")
+        out[name] = wall
+    shutil.rmtree(logs, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3027,6 +3209,14 @@ def main() -> int:
     mp_runs = multiprocess_phase(K, K2, K3, ARCHS)
     clock.lap("multiprocess")
 
+    # -- the dry run ([trainer]'s step traced without data, three
+    # production cells in their own processes) and the examples, last:
+    # run before [k3 time], phases made its profiler trace lose passes --
+    dry = dryrun_phase(ARCHS, tr)
+    clock.lap("dryrun")
+    examples = examples_phase()
+    clock.lap("examples")
+
     # -- 13. kernels line, card, contract line --------------------------------
     k2_main = k2_times[(TRAIN_SEQ, "global")]
     print(json.dumps({"kernels": [{
@@ -3049,6 +3239,7 @@ def main() -> int:
         "bound_ms": k1_sums["bound"],
         "bound_by": "bytes",
         "library_ms": None,
+        "dry_run": "not reached: the dry run traces model steps",
         "online_launches_by_variant": {
             "catalog": online_cat["launches"],
             "fleet": online_fleet["launches"],
@@ -3088,10 +3279,14 @@ def main() -> int:
         "library_ms": k2_main["library_ms"],
         "library_call": "torch.compile(flex_attention), tanh score_mod, "
                         "causal block mask, enable_gqa",
+        "dry_run": "traced through repro_torch::flash_attention_fwd's fake "
+                   f"implementation ([dryrun]: {dry['k2_flops']:.6g} FLOPs "
+                   "by formula in the gemma2-2b step)",
         "library_max_abs_err": k2_main["library_err"],
         "softcap0_ms": k2_main["ms_softcap0"],
         "softcap0_sdpa_ms": k2_main["sdpa_ms"],
         "serve_engine_forward_launches_by_variant": engine["k2"],
+        "serve_engine_f32_forward_launches_by_variant": engine["f32"]["k2"],
         "serve_engine_max_logit_err": {
             "decode_vs_forward": engine["err"],
             "decode_vs_plain_forward": engine["ctrl"],
@@ -3161,6 +3356,8 @@ def main() -> int:
         "bound_by": k3_time["bound_by"],
         "library_ms": None,
         "library_call": "none: no PyTorch call computes the SSD scan",
+        "dry_run": "traced through repro_torch::ssd_scan_fwd's fake "
+                   "implementation (the mamba2-2.7b and zamba2-7b cells)",
         "plain_backward_ms": k3_time["backward_ms"],
         "step_cost_flops": mtr["cost"]["detail_flops"].get("ssd_scan"),
         "passes_ms": k3_time["passes_ms"],
@@ -3178,6 +3375,9 @@ def main() -> int:
            for name, run in (("gemma2-2b", tr), ("mamba2-2.7b", mtr),
                              ("deepseek-v2-lite-16b x4", moe_tr),
                              ("zamba2-7b x15", hyb_tr))}}))
+    print("[dryrun] summary: " + json.dumps(
+        {**{k: v for k, v in dry.items() if k != "cells"},
+         "cell_seconds": dry["cells"], "example_seconds": examples}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s; by phase "
           f"{clock.times}")
     print(card)

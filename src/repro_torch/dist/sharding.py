@@ -27,6 +27,7 @@ through.
 """
 from __future__ import annotations
 
+import math
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -241,6 +242,45 @@ class DistCtx:
             spec[2] = tp
         return spec
 
+    def gather(self, x):
+        """``x`` replicated on every mesh dim: a parameter gathered before
+        ops that DTensor cannot run on its shards, as FSDP gathers on
+        use."""
+        if self.mesh is None or not isinstance(x, DTensor):
+            return x
+        return self._constrain(x, [None] * x.ndim)
+
+    def batch_entry(self, x):
+        """The spec entry of ``x``'s batch dim in a local-shard region: the
+        data-parallel dims where they divide it, else None (replicated).  A
+        plain tensor is None: it counts as replicated (``replicating``),
+        and a region takes it whole on every rank."""
+        if isinstance(x, DTensor) and self.dp_size > 1 \
+                and x.shape[0] % self.dp_size == 0:
+            return self._dp_entry()
+        return None
+
+    def dp_partial(self, sharded: bool) -> Placements:
+        """Placements of a value each data-parallel shard holds part of
+        (a sum over its tokens, the gradient of a replicated weight) and
+        each model shard holds whole: ``Partial`` on the data-parallel dims
+        when the batch is ``sharded`` over them, else replicated."""
+        from torch.distributed.tensor import Partial
+        return tuple(Partial() if sharded and a in self.dp_axes
+                     else Replicate() for a in self.axis_names)
+
+    def shard_vocab(self, w):
+        """An LM head or embedding table ``(V, d)`` with the vocab over the
+        model dim where it divides and replicated over the data dims (the
+        Megatron vocab-parallel head)."""
+        if self.mesh is None or not isinstance(w, DTensor):
+            return w
+        tp = self.tp_axis
+        spec = [None] * w.ndim
+        if tp and self.tp_size > 1 and w.shape[0] % self.tp_size == 0:
+            spec[0] = tp
+        return self._constrain(w, spec)
+
     def constrain_heads(self, x):
         """Attention tensors (B, S, H, D): batch over DP, heads over the
         model dim (the head counts are padded upstream to divide tp)."""
@@ -281,17 +321,38 @@ def _keeps(src, dst, d: int, n: int) -> bool:
     return back <= len(dst) and src[d:] == dst[len(dst) - back:]
 
 
+def uneven_mesh_dims(src, placements, mesh_sizes, dst) -> list:
+    """The mesh dims whose shards a reshape of ``src`` to ``dst`` would
+    split unevenly or move.  A tensor dim sharded over several mesh dims
+    (``(pod, data)``) is split ``prod`` of their sizes ways, so it keeps its
+    shards only if that product divides it: each mesh dim alone may
+    divide where their product does not (zamba2's 112 SSM heads over
+    2 x 16 ranks)."""
+    ndim = len(src)
+    over = {}
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            over.setdefault(p.dim % ndim, []).append(i)
+    bad = []
+    for d, dims in over.items():
+        n = math.prod(mesh_sizes[i] for i in dims)
+        if not _keeps(src, dst, d, n):
+            bad.extend(dims)
+    return sorted(bad)
+
+
 def even_for_reshape(x, shape):
     """``x`` replicated on every mesh dim whose shard a reshape to
-    ``shape`` would split unevenly or move: DTensor's own choice of
-    placements for a matrix product (or its gradient) may shard a dim
-    over the model dim, and DTensor refuses such a reshape."""
+    ``shape`` would split unevenly or move (``uneven_mesh_dims``):
+    DTensor's own choice of placements for a matrix product (or its
+    gradient) may shard a dim over the model dim, and DTensor refuses such
+    a reshape."""
     if not isinstance(x, DTensor):
         return x
     pl = list(x.placements)
     mesh = x.device_mesh
-    bad = [i for i, p in enumerate(pl) if isinstance(p, Shard)
-           and not _keeps(x.shape, shape, p.dim % x.ndim, mesh.size(i))]
+    bad = uneven_mesh_dims(tuple(x.shape), pl,
+                           [mesh.size(i) for i in range(mesh.ndim)], shape)
     if not bad:
         return x
     for i in bad:

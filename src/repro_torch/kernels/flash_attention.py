@@ -9,6 +9,11 @@ when 0).  It returns the output ``(B, Sq, H, Dv)`` in q's dtype and, with
 attention backward needs.  On a CUDA tensor it launches a hand-written
 kernel in ``csrc/flash_attention.cu`` or raises; on a CPU tensor it runs
 ``flash_attention_reference``, the plain torch version of the same function.
+Both run behind the custom op ``repro_torch::flash_attention_fwd``, whose
+fake implementation serves tensors without storage (a dry run's,
+``launch.dryrun``): the result's shapes, dtypes and device, after the
+checks a call on that device makes before it reads data.  A tensor with
+storage never reaches it.
 
 Which kernel runs is one fixed rule, ``variant_for(dtype, D, Dv)``, decided
 before any launch:
@@ -143,12 +148,18 @@ def tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
     16 bytes).  Raises ``ValueError`` unless the head dim is contiguous,
     the base is 16-byte aligned and every other stride is a positive
     multiple of 16 bytes below 2^40."""
+    if t.dim() == 4 and t.stride(3) == 1 and t.data_ptr() % 16:
+        raise ValueError(f"TMA needs a 16-byte-aligned base, got address "
+                         f"{t.data_ptr():#x}")
+    return tma_layout(t)
+
+
+def tma_layout(t: torch.Tensor) -> Tuple[int, int, int]:
+    """``tma_strides`` without the base address: what a tensor with no
+    storage (a dry run's) can be checked for."""
     if t.dim() != 4 or t.stride(3) != 1:
         raise ValueError("TMA reads (B, S, heads, D) with D contiguous")
     size = t.element_size()
-    if t.data_ptr() % 16:
-        raise ValueError(f"TMA needs a 16-byte-aligned base, got address "
-                         f"{t.data_ptr():#x}")
     strides = [0, 0, 0]
     inner, extent = 1, t.shape[3]
     for dim in (2, 1, 0):
@@ -257,30 +268,21 @@ class FlashAttention:
                  softcap: float = 0.0, scale: float = 0.0,
                  q_offset: int = 0, kv_len: Optional[int] = None,
                  return_lse: bool = False):
-        if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-            raise ValueError("q, k, v must be (B, S, heads, D)")
-        B, Sq, H, D = q.shape
-        Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
-        if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D \
-                or KV == 0 or H % KV:
-            raise ValueError(f"shapes q {tuple(q.shape)}, k "
-                             f"{tuple(k.shape)}, v {tuple(v.shape)} do not "
-                             "form GQA attention")
+        out, lse = torch.ops.repro_torch.flash_attention_fwd(
+            q, k, v, causal, window, softcap, scale, q_offset, kv_len)
+        return (out, lse) if return_lse else out
+
+    def run(self, q, k, v, causal: bool, window: int, softcap: float,
+            scale: float, q_offset: int, kv_len: Optional[int]):
+        """``(out, lse)`` of a call on tensors with storage: the kernel on
+        a CUDA tensor, the plain version on a CPU one (module docstring).
+        The custom op ``repro_torch::flash_attention_fwd`` runs it."""
+        B, Sq, H, D, Skv, KV, Dv = gqa_shapes(q, k, v)
         kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
                   q_offset=q_offset, kv_len=kv_len)
         if q.device.type == "cpu":
-            out, lse = flash_attention_reference(q, k, v, **kw)
-            return (out, lse) if return_lse else out
-        if q.device.type != "cuda" or k.device != q.device \
-                or v.device != q.device:
-            raise ValueError(f"K2 runs on one CUDA device, got {q.device}, "
-                             f"{k.device}, {v.device}")
-        if k.dtype != q.dtype or v.dtype != q.dtype:
-            raise TypeError(f"K2 takes q/k/v of one type, got {q.dtype}, "
-                            f"{k.dtype}, {v.dtype}")
-        variant = variant_for(q.dtype, D, Dv)
-        if any(t.stride(-1) != 1 for t in (q, k, v)):
-            raise ValueError("K2 takes tensors whose head dim is contiguous")
+            return flash_attention_reference(q, k, v, **kw)
+        variant = card_variant(q, k, v)
         if variant == "wgmma":
             strides = [s for t in (q, k, v) for s in tma_strides(t)]
         else:
@@ -309,7 +311,64 @@ class FlashAttention:
                                f"{code} ({msg})")
         self.launches += 1
         self.launches_by_variant[variant] += 1
-        return (out, lse) if return_lse else out
+        return out, lse
+
+
+def gqa_shapes(q, k, v) -> Tuple[int, ...]:
+    """``(B, Sq, H, D, Skv, KV, Dv)`` of q, k, v; raises ``ValueError``
+    unless they form GQA attention."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be (B, S, heads, D)")
+    B, Sq, H, D = q.shape
+    Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D \
+            or KV == 0 or H % KV:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not "
+                         "form GQA attention")
+    return B, Sq, H, D, Skv, KV, Dv
+
+
+def card_variant(q, k, v) -> str:
+    """What a launch on the card checks before it reads any data: one CUDA
+    device, one type, head dims K2 takes (``variant_for``) and a contiguous
+    head dim.  Returns the variant; raises ``ValueError`` or
+    ``TypeError``."""
+    if q.device.type != "cuda" or k.device != q.device \
+            or v.device != q.device:
+        raise ValueError(f"K2 runs on one CUDA device, got {q.device}, "
+                         f"{k.device}, {v.device}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"K2 takes q/k/v of one type, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    variant = variant_for(q.dtype, q.shape[3], v.shape[3])
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("K2 takes tensors whose head dim is contiguous")
+    return variant
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, window: int, softcap: float,
+                         scale: float, q_offset: int, kv_len: Optional[int]
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention.run(q, k, v, causal, window, softcap, scale,
+                               q_offset, kv_len)
+
+
+@_flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, causal, window, softcap, scale,
+                              q_offset, kv_len):
+    """The op on tensors with no storage (a dry run's ``FakeTensorMode``):
+    the shapes, type and device of ``run``'s result, after the checks a
+    call on the same device makes before it reads data (the kernel's
+    TMA layout but not its base address)."""
+    B, Sq, H, D, Skv, KV, Dv = gqa_shapes(q, k, v)
+    if q.device.type != "cpu" and card_variant(q, k, v) == "wgmma":
+        for t in (q, k, v):
+            tma_layout(t)
+    return (q.new_empty((B, Sq, H, Dv)),
+            q.new_empty((B, Sq, H), dtype=torch.float32))
 
 
 flash_attention = FlashAttention()

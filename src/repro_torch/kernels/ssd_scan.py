@@ -16,7 +16,10 @@ reference's Pallas TPU kernel ``repro/kernels/ssd_scan.py::_kernel``, which
 the kernels in ``csrc/ssd_scan.cu`` replace.  ``ssd_scan`` is a
 ``torch.autograd.Function``: its forward is a kernel on a CUDA tensor and
 ``ssd_scan_reference``, the plain torch version, on a CPU tensor, so both
-devices compute one function.  The reference has no backward kernel, so the
+devices compute one function; both run behind the custom op
+``repro_torch::ssd_scan_fwd``, whose fake implementation serves tensors
+without storage (a dry run's) after the checks a call on their device
+makes before it reads data.  The reference has no backward kernel, so the
 backward recomputes the plain version under autograd and returns the
 gradients of x, dt, A, Bm and Cm.  The plain version masks every decay
 difference before its exponential, so its gradients stay finite where the
@@ -60,7 +63,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import tma_strides
+from repro_torch.kernels.flash_attention import tma_layout, tma_strides
 from repro_torch.launch.step_cost import kernel_call
 
 SOURCE = _build.CSRC / "ssd_scan.cu"
@@ -272,45 +275,16 @@ class SSDScan:
         return tuple(int(v) for v in out)
 
     def run(self, x, dt, A, Bm, Cm, chunk: int = 128) -> torch.Tensor:
-        """y: a kernel on a CUDA tensor, the plain version on a CPU one."""
-        if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 \
-                or Bm.dim() != 4 or Cm.dim() != 4:
-            raise ValueError("K3 takes x (B,S,H,P), dt (B,S,H), A (H,), "
-                             "Bm/Cm (B,S,G,N)")
-        B, S, H, P = x.shape
-        G, N = Bm.shape[2], Bm.shape[3]
-        if dt.shape != (B, S, H) or A.shape != (H,) or Cm.shape != Bm.shape \
-                or Bm.shape[:2] != (B, S) or G == 0 or H % G:
-            raise ValueError(f"shapes x {tuple(x.shape)}, dt "
-                             f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
-                             f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)} do "
-                             "not form an SSD scan")
-        Q = min(chunk, S)
-        if S % Q:
-            raise ValueError(f"sequence length {S} is not a multiple of the "
-                             f"chunk {Q}")
+        """y: a kernel on a CUDA tensor, the plain version on a CPU one
+        (through the custom op ``repro_torch::ssd_scan_fwd``)."""
+        return torch.ops.repro_torch.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk)
+
+    def _run(self, x, dt, A, Bm, Cm, chunk: int) -> torch.Tensor:
+        """The op on tensors with storage."""
+        B, S, H, P, G, N, Q = scan_shapes(x, dt, A, Bm, Cm, chunk)
         if x.device.type == "cpu":
             return ssd_scan_reference(x, dt, A, Bm, Cm, chunk)
-        if x.device.type != "cuda" or any(t.device != x.device
-                                          for t in (dt, A, Bm, Cm)):
-            raise ValueError(f"K3 runs on one CUDA device, got x on "
-                             f"{x.device}")
-        if x.dtype not in DTYPE_CODES or Bm.dtype != x.dtype \
-                or Cm.dtype != x.dtype:
-            raise TypeError(f"K3 takes float32 or bfloat16 x/Bm/Cm of one "
-                            f"type, got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
-        if dt.dtype != torch.float32 or A.dtype != torch.float32:
-            raise TypeError(f"K3 takes float32 dt and A, got {dt.dtype}, "
-                            f"{A.dtype}")
-        variant = variant_for(x.dtype, P, N, Q)
-        if variant == "simt":
-            if Q > MAX_CHUNK:
-                raise ValueError(f"K3 takes chunks up to {MAX_CHUNK}, got "
-                                 f"{Q}")
-            ps = p_split_for(P)
-        if any(t.stride(-1) != 1 for t in (x, Bm, Cm)):
-            raise ValueError("K3 takes x, Bm, Cm whose last dim is "
-                             "contiguous")
+        variant = card_variant(x, dt, A, Bm, Cm, Q)
         if variant == "wgmma":
             strides = [s for t in (x, Bm, Cm) for s in tma_strides(t)]
         else:
@@ -332,8 +306,8 @@ class SSDScan:
                 code = lib.k3_ssd_scan(
                     x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                     Cm.data_ptr(), y.data_ptr(), B, S, H, P, G, N, Q,
-                    *strides, *y.stride()[:3], ps, DTYPE_CODES[x.dtype],
-                    stream)
+                    *strides, *y.stride()[:3], p_split_for(P),
+                    DTYPE_CODES[x.dtype], stream)
         if code != 0:
             msg = lib.k3_error_string(code).decode()
             raise RuntimeError(f"K3 ({variant}) launch on x "
@@ -346,6 +320,78 @@ class SSDScan:
 
     def __call__(self, x, dt, A, Bm, Cm, chunk: int = 128) -> torch.Tensor:
         return _SSDScan.apply(x, dt, A, Bm, Cm, chunk)
+
+
+def scan_shapes(x, dt, A, Bm, Cm, chunk: int) -> Tuple[int, ...]:
+    """``(B, S, H, P, G, N, Q)`` of a call; raises ``ValueError`` unless
+    the operands form an SSD scan whose length the chunk divides."""
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 \
+            or Bm.dim() != 4 or Cm.dim() != 4:
+        raise ValueError("K3 takes x (B,S,H,P), dt (B,S,H), A (H,), "
+                         "Bm/Cm (B,S,G,N)")
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if dt.shape != (B, S, H) or A.shape != (H,) or Cm.shape != Bm.shape \
+            or Bm.shape[:2] != (B, S) or G == 0 or H % G:
+        raise ValueError(f"shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
+                         f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)} do "
+                         "not form an SSD scan")
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"chunk {Q}")
+    return B, S, H, P, G, N, Q
+
+
+def card_variant(x, dt, A, Bm, Cm, Q: int) -> str:
+    """What a launch on the card checks before it reads any data: one CUDA
+    device, the types K3 takes, the chunk and head dim of the variant that
+    runs (``variant_for``) and contiguous last dims.  Returns the variant;
+    raises ``ValueError`` or ``TypeError``."""
+    if x.device.type != "cuda" or any(t.device != x.device
+                                      for t in (dt, A, Bm, Cm)):
+        raise ValueError(f"K3 runs on one CUDA device, got x on "
+                         f"{x.device}")
+    if x.dtype not in DTYPE_CODES or Bm.dtype != x.dtype \
+            or Cm.dtype != x.dtype:
+        raise TypeError(f"K3 takes float32 or bfloat16 x/Bm/Cm of one "
+                        f"type, got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"K3 takes float32 dt and A, got {dt.dtype}, "
+                        f"{A.dtype}")
+    P, N = x.shape[3], Bm.shape[3]
+    variant = variant_for(x.dtype, P, N, Q)
+    if variant == "simt":
+        if Q > MAX_CHUNK:
+            raise ValueError(f"K3 takes chunks up to {MAX_CHUNK}, got "
+                             f"{Q}")
+        p_split_for(P)
+    if any(t.stride(-1) != 1 for t in (x, Bm, Cm)):
+        raise ValueError("K3 takes x, Bm, Cm whose last dim is "
+                         "contiguous")
+    return variant
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=())
+def _ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+                  ) -> torch.Tensor:
+    return ssd_scan._run(x, dt, A, Bm, Cm, chunk)
+
+
+@_ssd_scan_fwd.register_fake
+def _ssd_scan_fwd_fake(x, dt, A, Bm, Cm, chunk):
+    """The op on tensors with no storage (a dry run's ``FakeTensorMode``):
+    y's shape, type and device, after the checks a call on the same device
+    makes before it reads data (the kernel's TMA layout but not its base
+    address)."""
+    Q = scan_shapes(x, dt, A, Bm, Cm, chunk)[-1]
+    if x.device.type != "cpu" \
+            and card_variant(x, dt, A, Bm, Cm, Q) == "wgmma":
+        for t in (x, Bm, Cm):
+            tma_layout(t)
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 class _SSDScan(torch.autograd.Function):

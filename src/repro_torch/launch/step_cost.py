@@ -31,17 +31,23 @@ is counted, and the call adds its kernel's own FLOP formula
 Their backwards run as plain torch on both devices and are counted as
 dispatched.  The count is therefore the same on the CPU and the card.
 
-A count runs the step on real tensors (a ``FakeTensorMode`` cannot run the
-compiled kernels): one extra forward and backward.
+On real tensors a count runs the step: one extra forward and backward.
+Under a ``FakeTensorMode`` (``launch.dryrun``) nothing runs: the ops whose
+fake tensors belong to that mode count as a real step's would, K2 and K3
+reach the fake implementations of their custom ops and count by formula,
+and DTensor's bookkeeping (``marking_propagation``) counts nothing.  On
+one device the two counts are equal.
 """
 from __future__ import annotations
 
 import threading
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
+from torch._guards import active_fake_mode
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.distributed_c10d import _resolve_process_group
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -95,9 +101,11 @@ _COLLECTIVES = {
 }
 _NAMESPACES = ("_c10d_functional", "c10d")
 #: ops that move no data: allocations, ``_unsafe_view`` (a view the
-#: dispatcher does not mark as one) and the waits of async collectives
+#: dispatcher does not mark as one), the waits of async collectives and
+#: ``prim.device`` (a fake tensor's ``.device`` dispatches it)
 _FREE = {aten.empty, aten.empty_strided, aten.empty_like, aten.lift_fresh,
-         aten.new_empty, aten.new_empty_strided, aten._unsafe_view}
+         aten.new_empty, aten.new_empty_strided, aten._unsafe_view,
+         torch.ops.prim.device}
 _FREE_NAMES = {"wait_tensor", "barrier", "monitored_barrier_"}
 
 
@@ -149,10 +157,13 @@ _FLOP_OPS = (aten.mm, aten.bmm, aten.addmm, aten.baddbmm, aten.convolution)
 class _Counter(TorchDispatchMode):
     """The dispatch mode of ``count_step``."""
 
-    def __init__(self):
+    def __init__(self, fake_mode=None):
         super().__init__()
         self.cost = Cost()
         self.paused = 0
+        #: the fake mode the step runs under (a dry run's), whose tensors
+        #: count as a real step's do; None for a step on real tensors
+        self.fake_mode = fake_mode
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -163,9 +174,11 @@ class _Counter(TorchDispatchMode):
             # issues, i.e. what this device does
             return NotImplemented
         out = func(*args, **kwargs)
-        if self.paused or any(isinstance(t, FakeTensor)
-                              for t in seen + _tensors(out)):
-            # DTensor's sharding propagation runs ops on fake tensors
+        if self.paused or propagating() or any(
+                isinstance(t, FakeTensor) and t.fake_mode is not self.fake_mode
+                for t in seen + _tensors(out)):
+            # DTensor's sharding propagation runs ops on fake tensors: of
+            # its own mode, or of the step's under a fake mode
             return out
         name = func.overloadpacket.__name__
         ns = func.namespace
@@ -211,6 +224,48 @@ def _active() -> Optional[_Counter]:
     return getattr(_state, "counter", None)
 
 
+def propagating() -> bool:
+    """Whether DTensor's own bookkeeping runs on this thread (inside
+    ``marking_propagation``): ops that compute shapes and shard offsets,
+    which no device runs."""
+    return getattr(_state, "propagating", 0) > 0
+
+
+@contextmanager
+def marking_propagation():
+    """Marks DTensor's bookkeeping for ``propagating`` while the block
+    runs: its sharding propagation, which computes global shapes on fake
+    tensors of the active fake mode (under a dry run's mode only this mark
+    tells its ops from the step's), and a strided shard's offsets, which
+    it reads back as Python ints (``tolist``) and so computes on real
+    index tensors, outside the fake mode, as in a step on real tensors."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    def marked(orig, outside_fake):
+        def run(*args, **kwargs):
+            _state.propagating = getattr(_state, "propagating", 0) + 1
+            try:
+                with unset_fake_temporarily() if outside_fake \
+                        else nullcontext():
+                    return orig(*args, **kwargs)
+            finally:
+                _state.propagating -= 1
+        return run
+    patched = [(ShardingPropagator, "_propagate_tensor_meta_non_cached",
+                False),
+               (_StridedShard, "local_shard_size_and_offset", True)]
+    origs = [cls.__dict__[name] for cls, name, _ in patched]
+    for (cls, name, outside_fake), orig in zip(patched, origs):
+        setattr(cls, name, marked(orig, outside_fake))
+    try:
+        yield
+    finally:
+        for (cls, name, _), orig in zip(patched, origs):
+            setattr(cls, name, orig)
+
+
 def kernel_call(name: str, fn: Callable, flops: Callable[[], float],
                 inputs):
     """``fn()``, the forward of a hand kernel on ``inputs``; while a count
@@ -234,10 +289,13 @@ def count_step(grad_step: Callable, params, batch) -> Cost:
     docstring).  Runs the call; its result is dropped."""
     if _active() is not None:
         raise RuntimeError("a step count is already running on this thread")
-    counter = _Counter()
+    fake_mode = active_fake_mode()
+    counter = _Counter(fake_mode)
     _state.counter = counter
     try:
-        with counter:
+        # on real tensors DTensor's propagation runs under a fake mode of
+        # its own, which the counter tells apart without the mark
+        with marking_propagation() if fake_mode else nullcontext(), counter:
             grad_step(params, batch)
     finally:
         _state.counter = None

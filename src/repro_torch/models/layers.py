@@ -35,6 +35,9 @@ INIT_SLICE_BYTES = 1 << 32
 
 
 def _trunc_normal(gen, shape, std: float, dtype, device) -> Tensor:
+    if gen is None:
+        # the init under a fake mode (``Transformer.init``): nothing drawn
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return w.mul_(std).to(dtype)
@@ -209,7 +212,17 @@ def softcap(x: Tensor, cap: float) -> Tensor:
 def cross_entropy(logits: Tensor, labels: Tensor, vocab_size: int
                   ) -> Tuple[Tensor, Tensor]:
     """Mean next-token NLL over non-pad labels (label < 0 is padding).
-    logits fp32 (..., V_padded); padded vocab positions are masked out."""
+    logits fp32 (..., V_padded); padded vocab positions are masked out.
+    Returns (mean NLL, the count of non-pad labels, at least 1)."""
+    nll_sum, count = cross_entropy_sums(logits, labels, vocab_size)
+    total = count.clamp(min=1.0)
+    return nll_sum / total, total
+
+
+def cross_entropy_sums(logits: Tensor, labels: Tensor, vocab_size: int
+                       ) -> Tuple[Tensor, Tensor]:
+    """``cross_entropy``'s two sums: the NLL summed over non-pad labels,
+    and their count."""
     v = logits.shape[-1]
     keep = torch.arange(v, device=logits.device) < vocab_size
     logits = torch.where(keep, logits,
@@ -219,8 +232,7 @@ def cross_entropy(logits: Tensor, labels: Tensor, vocab_size: int
                       labels.clamp(min=0).long()[..., None])[..., 0]
     nll = lse - ll
     mask = (labels >= 0).float()
-    total = mask.sum().clamp(min=1.0)
-    return (nll * mask).sum() / total, total
+    return (nll * mask).sum(), mask.sum()
 
 
 def param_bytes(tree: Dict) -> int:

@@ -87,6 +87,22 @@ def _causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     return (out + b.float()).to(x.dtype)
 
 
+def _conv_region(dist, x):
+    """``_causal_conv`` on local shards: the batch over the data-parallel
+    dims, the sequence and channels whole (DTensor would pad a sequence it
+    may have sharded for the product; not every PyTorch can plan that
+    redistribution), the weights gathered, their gradients partial sums
+    over the data-parallel dims."""
+    from repro_torch.dist.compat import shard_map
+    from repro_torch.dist.sharding import P
+    dpe = dist.batch_entry(x)
+    xspec = P(dpe, None, None)
+    wgrad = dist.dp_partial(dpe is not None)
+    return shard_map(_causal_conv, mesh=dist.mesh,
+                     in_specs=(xspec, P(None, None), P(None)),
+                     in_grad_specs=(xspec, wgrad, wgrad), out_specs=xspec)
+
+
 def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
                 chunk: int) -> Tuple[Tensor, Tensor]:
     """The reference's chunked SSD scan.  x: (B,S,H,P); dt: (B,S,H)
@@ -162,12 +178,14 @@ def apply_mamba2(p, x: Tensor, cfg, impl=ssd_k3, dist=None) -> Tensor:
     Bm = x @ p["w_B"]
     Cm = x @ p["w_C"]
     dt_raw = x @ p["w_dt"]
-    xs = F.silu(_causal_conv(xs, p["conv_x_w"], p["conv_x_b"]))
-    Bm = F.silu(_causal_conv(Bm, p["conv_B_w"], p["conv_B_b"]))
-    Cm = F.silu(_causal_conv(Cm, p["conv_C_w"], p["conv_C_b"]))
-    xs = xs.reshape(Bsz, S, H, P)
-    Bm = Bm.reshape(Bsz, S, G, N)
-    Cm = Cm.reshape(Bsz, S, G, N)
+    conv = _conv_region(dist, x) if dist is not None \
+        and dist.mesh is not None else _causal_conv
+    xs = F.silu(conv(xs, p["conv_x_w"], p["conv_x_b"]))
+    Bm = F.silu(conv(Bm, p["conv_B_w"], p["conv_B_b"]))
+    Cm = F.silu(conv(Cm, p["conv_C_w"], p["conv_C_b"]))
+    xs = L.reshape(xs, (Bsz, S, H, P))
+    Bm = L.reshape(Bm, (Bsz, S, G, N))
+    Cm = L.reshape(Cm, (Bsz, S, G, N))
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     if dist is not None and dist.mesh is not None:
@@ -175,7 +193,7 @@ def apply_mamba2(p, x: Tensor, cfg, impl=ssd_k3, dist=None) -> Tensor:
     else:
         y, _ = impl(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
     y = y + xs.float() * p["D"][:, None]
-    y = y.reshape(Bsz, S, di).to(x.dtype)
+    y = L.reshape(y, (Bsz, S, di)).to(x.dtype)
     y = y * F.silu(z)
     y = L.apply_norm({"scale": p["gate_norm"]}, y, "rms", cfg.norm_eps)
     return y @ p["out_proj"]
@@ -208,8 +226,11 @@ def _conv_step(window_prev: Tensor, x_new: Tensor, w: Tensor, b: Tensor):
     return (out + b.float()).to(x_new.dtype), window[:, 1:, :]
 
 
-def mamba2_decode(p, x: Tensor, cfg, cache):
-    """x: (B, 1, d).  Returns (y (B,1,d), new_cache)."""
+def mamba2_decode(p, x: Tensor, cfg, cache, dist=None):
+    """x: (B, 1, d).  Returns (y (B,1,d), new_cache).  Under ``dist`` the
+    block's small weights are gathered and its activations keep the batch
+    over the data-parallel dims and the rest whole, so that no product of
+    the recurrence folds a sharded head dim (``dist.sharding``)."""
     di, N, G, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_groups, cfg.ssm_heads
     P = cfg.ssm_head_dim
     B = x.shape[0]
@@ -219,14 +240,20 @@ def mamba2_decode(p, x: Tensor, cfg, cache):
     Bm = x0 @ p["w_B"]
     Cm = x0 @ p["w_C"]
     dt_raw = x0 @ p["w_dt"]
+    if dist is not None and dist.mesh is not None:
+        z, xs, Bm, Cm, dt_raw = (dist.constrain_act(t)
+                                 for t in (z, xs, Bm, Cm, dt_raw))
+        p = {k: v if k.startswith("w_") or k == "out_proj"
+             else dist.gather(v) for k, v in p.items()}
+        cache = {k: dist.constrain_act(v) for k, v in cache.items()}
     xs, conv_x = _conv_step(cache["conv_x"], xs, p["conv_x_w"], p["conv_x_b"])
     Bm, conv_B = _conv_step(cache["conv_B"], Bm, p["conv_B_w"], p["conv_B_b"])
     Cm, conv_C = _conv_step(cache["conv_C"], Cm, p["conv_C_w"], p["conv_C_b"])
     xs, Bm, Cm = F.silu(xs), F.silu(Bm), F.silu(Cm)
-    xs = xs.reshape(B, H, P)
+    xs = L.reshape(xs, (B, H, P))
     rep = H // G
-    Bh = Bm.reshape(B, G, N).repeat_interleave(rep, dim=1)     # (B,H,N)
-    Ch = Cm.reshape(B, G, N).repeat_interleave(rep, dim=1)
+    Bh = L.reshape(Bm, (B, G, N)).repeat_interleave(rep, dim=1)  # (B,H,N)
+    Ch = L.reshape(Cm, (B, G, N)).repeat_interleave(rep, dim=1)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])             # (B,H)
     A = -torch.exp(p["A_log"])
     a = torch.exp(dt * A)                                      # (B,H)
@@ -234,7 +261,7 @@ def mamba2_decode(p, x: Tensor, cfg, cache):
              + torch.einsum("bhn,bhp,bh->bhnp", Bh.float(), xs.float(), dt))
     y = torch.einsum("bhn,bhnp->bhp", Ch.float(), state)
     y = y + xs.float() * p["D"][:, None]
-    y = y.reshape(B, di).to(x.dtype)
+    y = L.reshape(y, (B, di)).to(x.dtype)
     y = y * F.silu(z)
     y = L.apply_norm({"scale": p["gate_norm"]}, y, "rms", cfg.norm_eps)
     out = (y @ p["out_proj"])[:, None]

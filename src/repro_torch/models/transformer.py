@@ -39,9 +39,10 @@ without one unless the caller asks for ``"cpu"``.
 
 ``dist`` (a ``dist.sharding.DistCtx``) enters as in the reference: the
 activations are constrained (``constrain_act``) after the embedding and
-after each residual add, the logits to ``constrain_logits``, the attention
-core and the SSD scan run in local-shard regions, and the MoE layer runs
-expert-parallel.  Under ``dist`` the parameters and the batch are DTensors
+after each residual add, the logits to ``constrain_logits`` (the head
+vocab-parallel), the attention core, the SSD scan, the embedding lookup,
+mamba2's causal conv and the loss run in local-shard regions, and the MoE
+layer runs expert-parallel.  Under ``dist`` the parameters and the batch are DTensors
 (the trainer places them); plain tensors made inside the forward, such as
 positions and masks, count as replicated (``implicit_replication``).
 ``pad_heads`` turns on the reference's phantom-head padding.
@@ -53,6 +54,7 @@ from functools import partial
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch._guards import active_fake_mode
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -74,6 +76,15 @@ def _dots_saveable(ctx, op, *args, **kwargs):
     chunks or experts reach ``aten.bmm`` and are recomputed)."""
     return CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default \
         else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _device(device) -> torch.device:
+    """``core.service.resolve_device``, except under a fake mode, where a
+    tensor needs no device to exist (a dry run traces the card's route on
+    a host without one)."""
+    if active_fake_mode() is None:
+        return resolve_device(device)
+    return torch.device("cuda" if device is None else device)
 
 
 def hybrid_layout(cfg):
@@ -190,10 +201,86 @@ def apply_mamba_block(bp, x, cfg, dist=None):
                       dist)
 
 
-def decode_mamba_block(bp, x, cfg, cache):
+def decode_mamba_block(bp, x, cfg, cache, dist=None):
     h = L.apply_norm(bp["ln"], x, cfg.norm, cfg.norm_eps)
-    y, new_cache = S.mamba2_decode(bp["mamba"], h, cfg, cache)
+    y, new_cache = S.mamba2_decode(bp["mamba"], h, cfg, cache, dist)
     return x + y, new_cache
+
+
+def _embed_lookup(table, ids, cfg, dist=None):
+    """``layers.embed_lookup``; under a mesh, on local shards: the table
+    gathered whole, each data-parallel shard looking up its own tokens (a
+    DTensor index by a batch sharded over two data-parallel dims is not
+    run by every PyTorch), the table's gradient a partial sum over those
+    dims."""
+    def lookup(t, i):
+        return L.embed_lookup({"table": t}, i, cfg.scale_embed, cfg.d_model)
+    if dist is None or dist.mesh is None:
+        return lookup(table, ids)
+    from repro_torch.dist.compat import shard_map
+    from repro_torch.dist.sharding import P
+    dpe = dist.batch_entry(ids)
+    ispec = P(dpe, None)
+    region = shard_map(lookup, mesh=dist.mesh, in_specs=(P(None, None), ispec),
+                       in_grad_specs=(dist.dp_partial(dpe is not None), ispec),
+                       out_specs=P(dpe, None, None))
+    return region(table, ids)
+
+
+def _cross_entropy(logits, labels, vocab_size: int, dist=None):
+    """``layers.cross_entropy``; under a mesh, on local shards, the vocab
+    sharded over the model dim as ``constrain_logits`` leaves it
+    (``_vocab_parallel_sums``) and the batch over the data-parallel dims:
+    each shard sums its tokens, and the two sums meet as partial sums over
+    those dims.  On DTensors the loss would gather the vocab on every rank,
+    and the gather's backward would build a zero gradient of the global
+    logits' shape there (DTensor replicates ``new_zeros``): 1.07 TB at
+    gemma2-2b's train_4k cell."""
+    if dist is None or dist.mesh is None:
+        return L.cross_entropy(logits, labels, vocab_size)
+    from repro_torch.dist.compat import shard_map
+    from repro_torch.dist.sharding import P
+    dpe = dist.batch_entry(logits)
+    tp = dist.tp_axis if dist.tp_size > 1 \
+        and logits.shape[-1] % dist.tp_size == 0 else None
+    group = dist.mesh.get_group(tp) if tp else None
+    rank = dist.mesh.get_local_rank(tp) if tp else 0
+    summed = dist.dp_partial(dpe is not None)
+    region = shard_map(
+        lambda lg, lb: _vocab_parallel_sums(lg, lb, vocab_size, group, rank),
+        mesh=dist.mesh, in_specs=(P(dpe, None, tp), P(dpe, None)),
+        out_specs=(summed, summed))
+    nll_sum, count = region(logits, labels)
+    total = count.clamp(min=1.0)
+    return nll_sum / total, total
+
+
+def _vocab_parallel_sums(logits, labels, vocab_size: int, group, rank: int):
+    """``layers.cross_entropy_sums`` over logits whose last dim is this
+    rank's slice ``[rank V_l, (rank + 1) V_l)`` of the padded vocab, the
+    other slices on the ranks of ``group`` (None: the whole vocab here).
+    The log-sum-exp takes the group's max and sums the exponentials over
+    the group; the label's logit comes from the slice that holds it."""
+    if group is None:
+        return L.cross_entropy_sums(logits, labels, vocab_size)
+    import torch.distributed as tdist
+
+    from repro_torch.dist.compat import all_reduce_fwd
+    Vl = logits.shape[-1]
+    v0 = rank * Vl
+    ids = v0 + torch.arange(Vl, device=logits.device)
+    logits = torch.where(ids < vocab_size, logits,
+                         torch.finfo(torch.float32).min)
+    m = logits.amax(dim=-1).detach()
+    tdist.all_reduce(m, op=tdist.ReduceOp.MAX, group=group)
+    se = all_reduce_fwd(torch.exp(logits - m[..., None]).sum(dim=-1), group)
+    lse = m + torch.log(se)
+    idx = labels.clamp(min=0).long() - v0
+    inside = (idx >= 0) & (idx < Vl)
+    ll = torch.gather(logits, -1, idx.clamp(0, Vl - 1)[..., None])[..., 0]
+    ll = all_reduce_fwd(torch.where(inside, ll, 0.0), group)
+    mask = (labels >= 0).float()
+    return ((lse - ll) * mask).sum(), mask.sum()
 
 
 # ---------------------------------------------------------------------------
@@ -227,11 +314,15 @@ class Transformer:
     # -- init ---------------------------------------------------------------
     def init(self, seed: int = 0, device=None) -> Dict[str, Any]:
         """Fresh parameters from ``torch.Generator(seed)`` on ``device``
-        (``None``: the card; module docstring)."""
+        (``None``: the card; module docstring).  Under a fake mode (the dry
+        run's, ``launch.dryrun``) nothing is drawn: the tensors have the
+        shapes, dtypes and device of a real init and no storage."""
         cfg = self.cfg
-        device = resolve_device(device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(seed))
+        device = _device(device)
+        gen = None
+        if active_fake_mode() is None:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(int(seed))
         dt = L.dtype_of(cfg.param_dtype)
         p: Dict[str, Any] = {
             "embed": L.init_embed(gen, cfg.padded_vocab, cfg.d_model, dt,
@@ -270,8 +361,9 @@ class Transformer:
         if cfg.frontend and "embeds" in batch:
             parts.append(batch["embeds"].to(dt) @ p["frontend"])
         if batch.get("tokens") is not None:
-            parts.append(L.embed_lookup(p["embed"], batch["tokens"].long(),
-                                        cfg.scale_embed, cfg.d_model).to(dt))
+            parts.append(_embed_lookup(p["embed"]["table"],
+                                       batch["tokens"].long(), cfg,
+                                       self.dist).to(dt))
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         return _constrain(x, self.dist)
 
@@ -380,6 +472,12 @@ class Transformer:
     def logits(self, p, hidden):
         cfg = self.cfg
         head = p["embed"]["table"] if cfg.tie_embeddings else p["lm_head"]
+        if self.dist is not None:
+            # the vocab-parallel head: the product's output, its cast and
+            # softcap stay sharded over the model dim, where a replicated
+            # head would hold every rank's logits whole (and gather their
+            # gradient back whole)
+            head = self.dist.shard_vocab(head)
         out = L.lm_logits(head, hidden, cfg.logit_softcap)
         return self.dist.constrain_logits(out) if self.dist is not None \
             else out
@@ -393,12 +491,8 @@ class Transformer:
         cfg = self.cfg
         hidden, stats, _ = self.forward(p, batch)
         logits = self.logits(p, hidden)
-        if self.dist is not None:
-            # the loss reads whole vocab rows: DTensor's gather over a
-            # vocab-sharded dim fails, so gather the vocab back first
-            logits = self.dist.constrain_act(logits)
         labels = batch["labels"]
-        nll, ntok = L.cross_entropy(logits, labels, cfg.vocab_size)
+        nll, ntok = _cross_entropy(logits, labels, cfg.vocab_size, self.dist)
         aux = torch.zeros_like(nll)
         if stats is not None and cfg.is_moe:
             total_tokens = labels.shape[0] * labels.shape[1] \
@@ -428,7 +522,7 @@ class Transformer:
         ring once ``max_len`` exceeds it)."""
         cfg = self.cfg
         dt = L.dtype_of(cfg.dtype)
-        device = resolve_device(device)
+        device = _device(device)
         if cfg.family in ("ssm", "hybrid"):
             ssm = [S.init_ssm_cache(cfg, batch, dt, device)
                    for _ in range(cfg.num_layers)]
@@ -469,7 +563,7 @@ class Transformer:
         x = self._embed_inputs(p, batch)
         if cfg.family == "ssm":
             for bp, c in zip(p["blocks"], cache):
-                x, new = decode_mamba_block(bp, x, cfg, c)
+                x, new = decode_mamba_block(bp, x, cfg, c, self.dist)
                 c.update(new)
             x = L.apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
             return self.logits(p, x), cache
@@ -478,7 +572,7 @@ class Transformer:
             nl, k = cfg.num_layers, cfg.shared_attn_every
             attn, specs = cache[nl:], self.layer_specs()
             for i, (bp, c) in enumerate(zip(p["blocks"], cache[:nl])):
-                x, new = decode_mamba_block(bp, x, cfg, c)
+                x, new = decode_mamba_block(bp, x, cfg, c, self.dist)
                 c.update(new)
                 if (i + 1) % k == 0:        # a group's last layer (the
                     g = i // k              # tail is shorter than k)

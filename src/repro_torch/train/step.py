@@ -23,7 +23,10 @@ def _grad_fn(model: Transformer):
         try:
             with model.replicating():       # the backward meets them too
                 loss, metrics = model.loss(params, batch)
-                grads = torch.autograd.grad(loss, leaves)
+                # a leaf the loss does not read (the token table of an
+                # audio model fed embeddings) gets zeros, as jax.grad gives
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
         finally:
             for t in leaves:
                 t.requires_grad_(False)

@@ -267,6 +267,25 @@ def check_engine(d):
     return {"tokens1": e1.tolist(), "tokens2": e2.tolist()}
 
 
+def check_ssm_engine(d):
+    """Greedy ``Engine.generate`` of a reduced zamba2-7b (mamba2 layers
+    and the shared attention block) under ``dist`` against the
+    undistributed engine: the SSM decode under a mesh keeps the batch over
+    the data dims and its small weights gathered."""
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = reduced(ARCHS["zamba2-7b"])
+    p1 = Transformer(cfg).init(0, device="cpu")
+    prompts = np.random.default_rng(1).integers(0, 512, (4, 5)) \
+        .astype(np.int32)
+    sc = ServeConfig(batch=4, max_len=16)
+    e1 = Engine(cfg, p1, sc, device="cpu").generate(prompts, 4)
+    e2 = Engine(cfg, d.place(p1, d.params_shardings(p1)), sc, dist=d,
+                device="cpu").generate(prompts, 4)
+    return {"tokens1": e1.tolist(), "tokens2": e2.tolist()}
+
+
 def check_trainer(d):
     """``Trainer(dist=)``: 2 instrumented iterations against the
     undistributed trainer; the step cost counted per device."""
@@ -294,7 +313,8 @@ def check_trainer(d):
 
 CHECKS = ["sharded_step", "moe_expert_parallel", "elastic_restore",
           "psum_compressed", "placement_rule", "pad_heads", "mamba_step",
-          "moe_step", "engine", "trainer", "moe_zero1", "mesh3_moe"]
+          "moe_step", "engine", "ssm_engine", "trainer", "moe_zero1",
+          "mesh3_moe"]
 
 
 def main():

@@ -139,6 +139,14 @@ def test_engine_under_dist_generates_the_same_tokens(ranks):
     assert r["tokens1"] == r["tokens2"]
 
 
+def test_ssm_engine_under_dist_generates_the_same_tokens(ranks):
+    """zamba2's decode under a mesh: the mamba2 recurrence folds no
+    sharded head dim (a fold torch 2.11's DTensor refuses; found by the
+    dry run's decode_32k cells)."""
+    r = _result(ranks, "ssm_engine")
+    assert r["tokens1"] == r["tokens2"]
+
+
 def test_trainer_under_dist_matches_and_counts_per_device(ranks):
     r = _result(ranks, "trainer")
     plain, sharded = r["plain"], r["dist"]

@@ -42,12 +42,36 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
     assert int(out.stdout) >= 20
 
 
+def test_examples_import_no_jax_and_no_reference():
+    """The five examples (``examples_torch/``): importing each pulls in
+    neither JAX nor ``repro``."""
+    examples = sorted((SRC.parent / "examples_torch").glob("*.py"))
+    assert [p.stem for p in examples] == [
+        "diagnose_ring_fault", "online_demo", "quickstart", "serve_lm",
+        "train_lm"]
+    code = (
+        "import importlib.util, sys\n"
+        "for path in sys.argv[1:]:\n"
+        "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code, *map(str, examples)],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_sources_name_no_jax_or_reference_import():
     pat = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
                      r"from\s+(jax|repro)\b(?!_))", re.M)
     files = sorted((SRC / "repro_torch").rglob("*.py"))
     files.append(SRC.parent / "chip_smoke.py")
+    files += sorted((SRC.parent / "examples_torch").glob("*.py"))
     assert len(files) > 20
+    assert SRC.parent / "examples_torch/online_demo.py" in files
     assert SRC / "repro_torch/models/moe.py" in files
     assert SRC / "repro_torch/models/attention.py" in files
     for f in files:
