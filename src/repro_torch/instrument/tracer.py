@@ -7,6 +7,17 @@ end: ``torch.cuda.synchronize`` of the device the fenced tensors live on
 (the reference's ``jax.block_until_ready``); tensors on the CPU need no
 wait.
 
+Every phase, and the fenced ``train.step`` that
+``Trainer.train_iteration`` records as an event, is also a ``span``: the
+one primitive by which the program names a stretch of its own work.  With
+``torch.profiler`` on, a span is a ``record_function`` range, so it lies
+in the device trace on the trace's own clock and names the kernels
+launched inside it; with the in-memory record on (``record_spans``), it
+is kept as a ``Span``; with both off it costs one check.  The step's own spans (``train.forward``,
+``train.backward``, ``optimizer.update``, ``dataloader.to_device``) sit
+where that work happens, in ``train/step.py``, ``optim/adamw.py`` and
+``train/loop.py``, and never reach the profile.
+
 The HostSampler thread samples real /proc/stat CPU utilization at up to
 ~1 kHz into a SampleStream.  The stream set is EXPLICIT per resource:
 only resources with a real sampler appear in the profile (no device
@@ -17,17 +28,78 @@ emits beta-only patterns for them).
 """
 from __future__ import annotations
 
+import math
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 import torch
+from torch.autograd.profiler import record_function
 
 from repro_torch.core.events import (FunctionEvent, Kind, SampleStream,
                                      WorkerProfile)
+
+
+@dataclass
+class Span:
+    """One span of the in-memory record: ``start`` and ``end`` on the
+    tracer's clock (``time.perf_counter``), and ``parent``, the index in
+    the record of the span open around it on the same thread (None for a
+    top span)."""
+    name: str
+    start: float
+    end: float = math.nan
+    parent: Optional[int] = None
+
+
+class _Record:
+    def __init__(self):
+        self.spans: List[Span] = []
+        self.lock = threading.Lock()
+        self.local = threading.local()      # per thread: open span indices
+
+
+_record: Optional[_Record] = None
+
+
+def record_spans(on: bool) -> List[Span]:
+    """Turn the in-memory span record on or off (off by default), and hand
+    over the spans it held since the last call, in the order they opened.
+    A span open across the call lands in the list handed over, and its
+    ``end`` is set when it closes."""
+    global _record
+    held = _record.spans if _record is not None else []
+    _record = _Record() if on else None
+    return held
+
+
+@contextmanager
+def span(name: str):
+    """A named stretch of the program's work (module docstring)."""
+    rec = _record
+    profiling = torch._C._autograd._profiler_enabled()
+    if rec is None and not profiling:
+        yield
+        return
+    with record_function(name) if profiling else nullcontext():
+        if rec is None:
+            yield
+            return
+        stack = rec.local.__dict__.setdefault("open", [])
+        s = Span(name, time.perf_counter(),
+                 parent=stack[-1] if stack else None)
+        with rec.lock:
+            stack.append(len(rec.spans))
+            rec.spans.append(s)
+        try:
+            yield
+        finally:
+            stack.pop()
+            s.end = time.perf_counter()
 
 
 def _read_proc_stat() -> Tuple[float, float]:
@@ -154,15 +226,6 @@ class Tracer:
             dict(samplers) if samplers is not None
             else {"cpu": HostSampler(rate_hz=rate_hz)})
 
-    @property
-    def sampler(self) -> HostSampler:
-        """The cpu sampler (back-compat alias for the single-sampler API)."""
-        return self.samplers["cpu"]
-
-    @property
-    def rate_hz(self) -> float:
-        return self.samplers["cpu"].rate_hz
-
     def set_rate(self, rate_hz: float) -> None:
         """Differential escalation (DESIGN.md §7): the service retunes each
         worker's sampling rate between profiling windows — implicated
@@ -204,18 +267,21 @@ class Tracer:
     @contextmanager
     def phase(self, name: str, kind: Kind = Kind.PYTHON, depth: int = 1,
               fence=None, resource: str = ""):
-        if not self.active:
-            yield
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if fence is not None:
-                sync(fence() if callable(fence) else fence)
-            self.events.append(FunctionEvent(
-                name, kind, t0, time.perf_counter(), self.worker,
-                depth=depth, resource=resource))
+        """A phase: an event of the window while it is open, and a ``span``
+        of the same name (its fence included) whether or not it is."""
+        with span(name):
+            if not self.active:
+                yield
+                return
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if fence is not None:
+                    sync(fence() if callable(fence) else fence)
+                self.events.append(FunctionEvent(
+                    name, kind, t0, time.perf_counter(), self.worker,
+                    depth=depth, resource=resource))
 
     def add_event(self, name: str, kind: Kind, start: float, end: float,
                   depth: int = 2, resource: str = "") -> None:

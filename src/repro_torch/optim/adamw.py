@@ -17,6 +17,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.instrument.tracer import span
 from repro_torch.models.transformer import map_params, param_leaves
 
 NO_DECAY_TOKENS = ("norm", "scale", "bias", "ln", "A_log", "dt_bias",
@@ -86,28 +87,31 @@ class AdamW:
     def update(self, grads, state, params) -> Tuple[Any, Dict[str, Any],
                                                     Dict[str, torch.Tensor]]:
         """One step, in place (module docstring).  Returns
-        ``(params, state, {"lr", "grad_norm"})``."""
-        c = self.cfg
-        step = state["step"] + 1
-        lr = lr_schedule(c, step)
-        gnorm = global_norm(grads)
-        if c.clip_norm:
-            scale = torch.clamp(c.clip_norm / gnorm.clamp(min=1e-12), max=1.0)
-        else:
-            scale = torch.ones((), device=gnorm.device)
-        b1c = 1 - c.b1 ** step.float()
-        b2c = 1 - c.b2 ** step.float()
-        for (path, g), (_, m), (_, v), (_, w), (_, p) in zip(
-                param_leaves(grads), param_leaves(state["m"]),
-                param_leaves(state["v"]), param_leaves(state["master"]),
-                param_leaves(params)):
-            g = g.float() * scale
-            m.mul_(c.b1).add_((1 - c.b1) * g)
-            v.mul_(c.b2).add_((1 - c.b2) * g.square())
-            delta = (m / b1c) / (torch.sqrt(v / b2c) + c.eps)
-            if decays(path):
-                delta += c.weight_decay * w
-            w.sub_(lr * delta)
-            p.copy_(w)
-        state["step"] = step
-        return params, state, {"lr": lr, "grad_norm": gnorm}
+        ``(params, state, {"lr", "grad_norm"})``.  The span
+        ``optimizer.update``."""
+        with span("optimizer.update"):
+            c = self.cfg
+            step = state["step"] + 1
+            lr = lr_schedule(c, step)
+            gnorm = global_norm(grads)
+            if c.clip_norm:
+                scale = torch.clamp(c.clip_norm / gnorm.clamp(min=1e-12),
+                                    max=1.0)
+            else:
+                scale = torch.ones((), device=gnorm.device)
+            b1c = 1 - c.b1 ** step.float()
+            b2c = 1 - c.b2 ** step.float()
+            for (path, g), (_, m), (_, v), (_, w), (_, p) in zip(
+                    param_leaves(grads), param_leaves(state["m"]),
+                    param_leaves(state["v"]), param_leaves(state["master"]),
+                    param_leaves(params)):
+                g = g.float() * scale
+                m.mul_(c.b1).add_((1 - c.b1) * g)
+                v.mul_(c.b2).add_((1 - c.b2) * g.square())
+                delta = (m / b1c) / (torch.sqrt(v / b2c) + c.eps)
+                if decays(path):
+                    delta += c.weight_decay * w
+                w.sub_(lr * delta)
+                p.copy_(w)
+            state["step"] = step
+            return params, state, {"lr": lr, "grad_norm": gnorm}

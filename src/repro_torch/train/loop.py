@@ -38,7 +38,7 @@ from repro_torch.core.mitigation import Action, plan_mitigations
 from repro_torch.core.service import resolve_device
 from repro_torch.data.pipeline import DataConfig, DataLoader, SyntheticLM
 from repro_torch.instrument.hooks import PerfTracker, PerfTrackerConfig
-from repro_torch.instrument.tracer import sync
+from repro_torch.instrument.tracer import span, sync
 from repro_torch.launch.step_cost import count_step
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim.adamw import AdamW, OptConfig
@@ -170,11 +170,16 @@ class Trainer:
         return (tree["params"], tree["opt"]), meta
 
     def _batch(self, batch_np):
-        batch = {k: torch.from_numpy(v).to(self.device)
-                 for k, v in batch_np.items()}
-        if self.dist is not None:
-            batch = self.dist.place(batch, self.dist.batch_shardings(batch))
-        return batch
+        """The batch on the device, in the span ``dataloader.to_device``:
+        the copy, and its wait for the device's queue to drain (a copy
+        from pageable memory waits for it)."""
+        with span("dataloader.to_device"):
+            batch = {k: torch.from_numpy(v).to(self.device)
+                     for k, v in batch_np.items()}
+            if self.dist is not None:
+                batch = self.dist.place(batch,
+                                        self.dist.batch_shardings(batch))
+            return batch
 
     # ------------------------------------------------------------------
     def ensure_bundle(self, params, batch) -> StepBundle:
@@ -218,10 +223,11 @@ class Trainer:
         bundle = self.ensure_bundle(params, batch)
         res = self._step_resource
         t0 = time.perf_counter()
-        grads, metrics = bundle.grad_step(params, batch)
-        if self.step_pad_s > 0.0:         # injected fault: slow device step
-            time.sleep(self.step_pad_s)
-        sync(grads)
+        with span("train.step"):          # the event below, as a span too
+            grads, metrics = bundle.grad_step(params, batch)
+            if self.step_pad_s > 0.0:     # injected fault: slow device step
+                time.sleep(self.step_pad_s)
+            sync(grads)
         t1 = time.perf_counter()
         if tracer is not None and tracer.active:
             tracer.add_event("train.step", Kind.GPU, t0, t1, depth=1,

@@ -4,12 +4,15 @@ function: nothing is traced or compiled.
 
 Parameters are leaf tensors; ``grad_step`` differentiates the loss with
 ``torch.autograd.grad`` and returns the gradients as a tree shaped like the
-parameters.  The optimizer updates in place (``optim/adamw.py``).
+parameters.  The optimizer updates in place (``optim/adamw.py``).  The
+forward and the backward are the spans ``train.forward`` and
+``train.backward`` (``instrument/tracer.py::span``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.instrument.tracer import span
 from repro_torch.models.transformer import (Transformer, map_params,
                                             param_leaves, unflatten_like)
 from repro_torch.optim.adamw import AdamW
@@ -22,11 +25,14 @@ def _grad_fn(model: Transformer):
             t.requires_grad_(True)
         try:
             with model.replicating():       # the backward meets them too
-                loss, metrics = model.loss(params, batch)
+                with span("train.forward"):
+                    loss, metrics = model.loss(params, batch)
                 # a leaf the loss does not read (the token table of an
                 # audio model fed embeddings) gets zeros, as jax.grad gives
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                            materialize_grads=True)
+                with span("train.backward"):
+                    grads = torch.autograd.grad(loss, leaves,
+                                                allow_unused=True,
+                                                materialize_grads=True)
         finally:
             for t in leaves:
                 t.requires_grad_(False)
