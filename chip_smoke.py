@@ -11,7 +11,9 @@ at D 64-256 (112 on the tiles of 128) and at MLA's q/k 192 with v 128, and
 the SIMT kernel for f32 and bf16 at D 16-32) and K3
 (``src/repro_torch/csrc/ssd_scan.cu``: four wgmma/TMA passes for bf16 at
 P 64/128, N and chunk multiples of 64 up to 256, and the SIMT kernel for the
-rest) with nvcc for sm_90a, all at once, prints their ptxas reports and how
+rest) and K4 (``src/repro_torch/csrc/rms_norm.cu``: the RMS norm, plain and
+with mamba2's skip and gate, forward and backward) with nvcc for sm_90a,
+all at once, prints their ptxas reports and how
 many HGMMA and UTMALDG instructions K2's and K3's SASS hold, and then runs
 these phases, each checked:
 
@@ -74,10 +76,16 @@ these phases, each checked:
    SIMT kernel at the [hybrid serve] forward's chunk of 48), timed beside
    its bound
    and its plain version, each wgmma pass's device time from one profiled
-   call, with the plain SSD backward of one layer;
+   call, with the plain SSD backward of one layer; then K4 against its
+   plain versions (``K4_CASES``: mamba2-2.7b's pre-norm and gated norm in
+   bf16 and f32, deepseek-v2's strided MLA latent, widths off the 16-byte
+   vector), forward and backward, the backward the same bits three times,
+   and each direction timed at mamba2-2.7b's two norms beside its bytes
+   bound and the composed ops it replaces;
 7. the full mamba2-2.7b trainer (64 layers, full width, bf16 with f32
    ``A_log``/``D``/``dt_bias`` and fp32 AdamW state) for 5 steps of batch
-   1 x 2048 tokens: 64 K3 launches a step, all of the wgmma variant, finite
+   1 x 2048 tokens: 64 K3 launches a step, all of the wgmma variant, 129
+   K4 launches a step each way (64 plain, 64 gated, the final norm), finite
    losses and grad norms;
 8. the online loop (detect, summarize with K1 every window, localize, plan,
    mitigate): ``[online catalog]``, all 22 scenarios of
@@ -426,10 +434,13 @@ def same_diagnosis(a, b, fleet_size: int) -> None:
 
 
 def reset_counts(K, K2, K3) -> None:
-    """Set every kernel's launch count to 0, just before a path runs."""
+    """Set every kernel's launch count to 0 (K4's too), just before a path
+    runs."""
+    from repro_torch.kernels.rms_norm import rms_norm
     K.pattern_summary.reset_counts()
     K2.flash_attention.reset_counts()
     K3.ssd_scan.reset_counts()
+    rms_norm.reset_counts()
 
 
 def _rand(g, shape, dtype):
@@ -930,13 +941,243 @@ def k3_timing(K3, flush) -> dict:
                 backward_ms=bwd, passes_ms=passes)
 
 
+#: K4's cases on the card: (label, variant, activation dtype, scale dtype,
+#: leading dims, width n or (H, P), columns past n in each row): mamba2-2.7b's
+#: pre-norm and gated norm in bf16 and f32, deepseek-v2's MLA latent norm
+#: (the first 512 of each 576-wide row of the down projection, a strided
+#: view), and widths that take the one-element vector
+K4_CASES = (
+    ("mamba2 pre-norm", "plain", torch.bfloat16, torch.bfloat16,
+     (1, MAMBA_SEQ), 2560, 0),
+    ("mamba2 pre-norm f32", "plain", torch.float32, torch.float32,
+     (1, MAMBA_SEQ), 2560, 0),
+    ("mamba2 gated norm", "gated", torch.bfloat16, torch.bfloat16,
+     (1, MAMBA_SEQ), (80, 64), 0),
+    ("mamba2 gated norm f32", "gated", torch.float32, torch.float32,
+     (1, MAMBA_SEQ), (80, 64), 0),
+    ("MLA latent, strided", "plain", torch.bfloat16, torch.bfloat16,
+     (1, MAMBA_SEQ), 512, 64),
+    ("width 100, f32 scale", "plain", torch.bfloat16, torch.float32,
+     (5, 3), 100, 0),
+    ("gated 3 x 12", "gated", torch.bfloat16, torch.bfloat16, (2, 9),
+     (3, 12), 0),
+)
+#: K4 vs its plain version, gradients: max |err| / max |ref| (bf16: both
+#: round the same f32 value to bf16 after sums taken in another order, one
+#: step is 2^-7 of a value at most; f32: the sums' order)
+K4_BF16_TOL = 2.0 ** -6
+K4_F32_TOL = 1e-4
+#: cycles of ``torch.cuda._sleep`` queued before a timed launch, so the
+#: host has enqueued it before the card reaches the start event (~1 ms)
+QUEUE_CYCLES = 2_000_000
+
+
+def queued_ms(fn, reps: int, flush: torch.Tensor) -> float:
+    """Mean device time of ``fn`` by CUDA events over ``reps`` runs, each
+    after an L2 flush and queued behind a spin on the card, so that no host
+    enqueue falls between the events (a launch's host side is tens of
+    microseconds, more than K4's kernels)."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(QUEUE_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def k4_inputs(case, seed: int) -> list:
+    """(x, scale) or (y, xs, D, z, scale) and the output's gradient, on the
+    card, from the seed."""
+    _, variant, dt, wdt, lead, width, pad = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if variant == "plain":
+        base = _rand(g, (*lead, width + pad), dt)
+        ins = [base[..., :width],
+               (1 + 0.1 * _rand(g, (width,), torch.float32)).to(wdt)]
+        n = width
+    else:
+        H, P = width
+        n = H * P
+        ins = [_rand(g, (*lead, H, P), dt), _rand(g, (*lead, H, P), dt),
+               1 + 0.5 * _rand(g, (H,), torch.float32),
+               2 * _rand(g, (*lead, n), dt),
+               (1 + 0.1 * _rand(g, (n,), torch.float32)).to(wdt)]
+    return ins, _rand(g, (*lead, n), dt)
+
+
+def k4_call(K4, variant, ins):
+    """K4's forward on ``ins`` as the op takes them: (out, rstd)."""
+    if variant == "plain":
+        return K4.rms_norm.forward(ins[0], ins[1], 1e-5)
+    y, xs, D, z, scale = ins
+    return K4.rms_norm.forward(y, scale, 1e-5, xs, D, z)
+
+
+def k4_backward(K4, variant, ins, g, rstd):
+    if variant == "plain":
+        return K4.rms_norm.backward(g, ins[0], ins[1], rstd)
+    y, xs, D, z, scale = ins
+    return K4.rms_norm.backward(g, y, scale, rstd, xs, D, z)
+
+
+def k4_reference(K4, variant, ins, g):
+    """The plain versions on the card: (out, rstd, grads)."""
+    if variant == "plain":
+        out, rstd = K4.rms_norm_reference(ins[0], ins[1], 1e-5)
+        return out, rstd, list(K4.rms_norm_backward_reference(
+            g, ins[0], ins[1], rstd))
+    out, rstd = K4.gated_rms_norm_reference(*ins, 1e-5)
+    y, xs, D, z, scale = ins
+    return out, rstd, K4.gated_rms_norm_backward_reference(
+        g, y, xs, D, z, scale, rstd)
+
+
+def k4_checks(K4) -> dict:
+    """K4 against its plain versions on every ``K4_CASES`` case, forward and
+    backward: the output within one bf16 step of the plain version's
+    elementwise (f32: 1e-5 of the largest), rstd within 1e-5, each gradient
+    within ``K4_BF16_TOL`` / ``K4_F32_TOL`` of the largest; the backward's
+    outputs the same bits on three runs; one launch counted a call, of the
+    case's variant and direction.  Returns the worst errors."""
+    worst = {"out": 0.0, "rstd": 0.0, "grad": 0.0}
+    for i, case in enumerate(K4_CASES):
+        label, variant, dt = case[:3]
+        ins, g = k4_inputs(case, 40 + i)
+        before = (K4.rms_norm.launches_by_variant[variant],
+                  dict(K4.rms_norm.launches_by_direction))
+        out, rstd = k4_call(K4, variant, ins)
+        grads = k4_backward(K4, variant, ins, g, rstd)
+        again = [k4_backward(K4, variant, ins, g, rstd) for _ in range(2)]
+        torch.cuda.synchronize()
+        ref_out, ref_rstd, ref_grads = k4_reference(K4, variant, ins, g)
+        if K4.rms_norm.launches_by_variant[variant] != before[0] + 4 or \
+                K4.rms_norm.launches_by_direction != {
+                    "forward": before[1]["forward"] + 1,
+                    "backward": before[1]["backward"] + 3}:
+            raise AssertionError(f"[k4 check] {label}: launches not counted")
+        if dt == torch.bfloat16:
+            d = (out.float() - ref_out.float()).abs()
+            ok_out = bool((d <= 2.0 ** -7 * ref_out.float().abs()).all())
+            out_err = float(d.max())
+        else:
+            out_err = float((out - ref_out).abs().max()
+                            / ref_out.abs().max())
+            ok_out = out_err < 1e-5
+        rstd_err = float(((rstd - ref_rstd).abs() / ref_rstd).max())
+        grad_errs = [float((a.float() - b.float()).abs().max()
+                           / b.float().abs().max())
+                     for a, b in zip(grads, ref_grads)]
+        tol = K4_BF16_TOL if dt == torch.bfloat16 else K4_F32_TOL
+        same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for run in again for a, b in zip(grads, run))
+        vec = "16 bytes" if _k4_vec(K4, variant, ins) > 1 else "one element"
+        print(f"[k4 check] {label} ({variant}, {dt}, scale {case[3]}, "
+              f"{tuple(out.shape)}, vector of {vec}): "
+              f"out max |err| {out_err:.3g} (within one bf16 step: "
+              f"{ok_out}), rstd {rstd_err:.3g}, gradients "
+              f"{[f'{e:.3g}' for e in grad_errs]} (limit {tol:.3g}); "
+              f"backward the same bits 3 times: {same}")
+        if not (ok_out and rstd_err < 1e-5 and max(grad_errs) < tol
+                and same and all(torch.isfinite(t).all() for t in grads)):
+            raise AssertionError(f"[k4 check] {label} disagrees with K4's "
+                                 f"plain version")
+        worst["out"] = max(worst["out"], out_err)
+        worst["rstd"] = max(worst["rstd"], rstd_err)
+        worst["grad"] = max(worst["grad"], max(grad_errs))
+    return worst
+
+
+def _k4_vec(K4, variant, ins) -> int:
+    """The vector K4's wrapper picks for ``ins``, in elements."""
+    acts = [ins[0]] if variant == "plain" else [ins[0], ins[1], ins[3]]
+    strides = K4.row_strides(*acts) if variant == "gated" \
+        else K4.row_strides(ins[0], None, None)
+    return K4._vec(acts + [ins[-1]], list(strides), ins[0].dtype,
+                   ins[0].shape[-1])
+
+
+def k4_timing(K4, flush) -> dict:
+    """K4 at mamba2-2.7b's two norms (bf16), each direction by CUDA events
+    queued behind a spin, beside its bytes bound, the composed ops it
+    replaces (its plain versions: the forward, and forward + backward
+    under autograd) and, for the plain variant, PyTorch's own
+    ``F.rms_norm`` (the same function; no PyTorch call computes the gated
+    one) by the same clock."""
+    out = {}
+    for case in K4_CASES[:3:2]:
+        label, variant = case[:2]
+        ins, g = k4_inputs(case, 7)
+        fwd = queued_ms(lambda: k4_call(K4, variant, ins), TIMED_LAUNCHES,
+                        flush)
+        res, rstd = k4_call(K4, variant, ins)
+        grads = k4_backward(K4, variant, ins, g, rstd)
+        bwd = queued_ms(lambda: k4_backward(K4, variant, ins, g, rstd),
+                        TIMED_LAUNCHES, flush)
+        fwd_bound = K4.bound_ms(ins + [res, rstd])
+        bwd_bound = K4.bound_ms([g, rstd] + ins + list(grads))
+        grad_ins = [t.detach().requires_grad_(True) for t in ins]
+        reference = (K4.rms_norm_reference if variant == "plain"
+                     else K4.gated_rms_norm_reference)
+        plain_fwd = queued_ms(lambda: reference(*ins, 1e-5), TIMED_LAUNCHES,
+                              flush)
+
+        def plain_both():
+            with torch.enable_grad():
+                o = reference(*grad_ins, 1e-5)[0]
+                torch.autograd.grad(o, grad_ins, g)
+        plain_both_ms = queued_ms(plain_both, TIMED_LAUNCHES, flush)
+        lib_ms = lib_both_ms = None
+        library = "none (no PyTorch call computes this norm)"
+        if variant == "plain":
+            x, scale = ins
+            F = torch.nn.functional
+            lib_out = F.rms_norm(x, (x.shape[-1],), scale, 1e-5)
+            d = (lib_out.float() - res.float()).abs()
+            lib_ms = queued_ms(lambda: F.rms_norm(
+                x, (x.shape[-1],), scale, 1e-5), TIMED_LAUNCHES, flush)
+
+            def lib_both():
+                with torch.enable_grad():
+                    o = F.rms_norm(grad_ins[0], (x.shape[-1],), grad_ins[1],
+                                   1e-5)
+                    torch.autograd.grad(o, grad_ins, g)
+            lib_both_ms = queued_ms(lib_both, TIMED_LAUNCHES, flush)
+            library = (f"F.rms_norm forward {lib_ms:.4f} ms, forward + "
+                       f"backward {lib_both_ms:.4f} ms (its output within "
+                       f"one bf16 step of K4's: "
+                       f"{bool((d <= 2.0 ** -7 * res.float().abs()).all())}"
+                       f", max |diff| {float(d.max()):.3g})")
+        print(f"[k4 time] {label} {tuple(res.shape)} bf16: forward "
+              f"{fwd:.4f} ms (bound {fwd_bound:.4f} ms by bytes, "
+              f"{fwd_bound / fwd:.1%}), backward {bwd:.4f} ms (bound "
+              f"{bwd_bound:.4f} ms, {bwd_bound / bwd:.1%}); the composed "
+              f"ops: forward {plain_fwd:.4f} ms, forward + backward "
+              f"{plain_both_ms:.4f} ms (K4 {fwd + bwd:.4f} ms); library: "
+              f"{library}")
+        out[variant] = dict(ms=fwd, backward_ms=bwd, bound_ms=fwd_bound,
+                            backward_bound_ms=bwd_bound, plain_ms=plain_fwd,
+                            plain_fwd_bwd_ms=plain_both_ms, library_ms=lib_ms,
+                            library_fwd_bwd_ms=lib_both_ms)
+        del ins, g, res, rstd, grads, grad_ins
+    return out
+
+
 def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
                   TrainConfig, DataConfig, OptConfig, Tracer) -> dict:
     """The full trainer of ``cfg``: 5 instrumented steps of batch 1 x
     ``seq`` tokens on the card.  ``counter`` is the wrapper of the kernel
     the path runs once a layer (``label`` names it, ``fragment`` is a piece
     of its device-side name for the profiler).  Returns, besides, K2's and
-    K3's launches by variant over the counted steps."""
+    K3's launches by variant over the counted steps, and K4's by direction
+    in each step."""
+    from repro_torch.kernels.rms_norm import rms_norm
     tr = Trainer(cfg, DataConfig(batch=1, seq_len=seq), OptConfig(),
                  TrainConfig(perftracker=False), device="cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -959,18 +1200,22 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
     tracer = Tracer(worker=0)
     tracer.start_window()
     reset_counts(*kernels)
-    per_step, rows, aux = [], [], []
+    per_step, rows, aux, k4_steps = [], [], [], []
     for i in range(TRAIN_STEPS):
         before = counter.launches
+        k4_before = dict(rms_norm.launches_by_direction)
         params, opt_state, m = tr.train_iteration(params, opt_state,
                                                   tracer=tracer)
         per_step.append(counter.launches - before)
+        k4_steps.append({d: rms_norm.launches_by_direction[d] - k4_before[d]
+                         for d in k4_before})
         rows.append((float(m["loss"]), float(m["grad_norm"])))
         aux.append(float(m["aux"]))
     launches = counter.launches
     by_variant = dict(getattr(counter, "launches_by_variant", {}))
     k2_k3 = tuple(dict(w.launches_by_variant)
                   for w in (kernels[1].flash_attention, kernels[2].ssd_scan))
+    k4_by_variant = dict(rms_norm.launches_by_variant)
     prof = tracer.stop_window()
     peak = torch.cuda.max_memory_allocated()
     top = sorted((e for e in prof.events if e.depth == 1),
@@ -989,7 +1234,8 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
         print(f"{tag} step {i + 1}: dataloader.next {d:.4f} s, "
               f"train.step {s:.4f} s, optimizer.step {o:.4f} s; loss "
               f"{loss:.4f}{aux_note} grad norm {gnorm:.4f}; {label} launches "
-              f"{per_step[i]}; max memory allocated {peak} bytes")
+              f"{per_step[i]}, K4 {k4_steps[i]}; max memory allocated {peak} "
+              f"bytes")
     if not all(math.isfinite(x) for r in rows for x in r):
         raise AssertionError("trainer loss or grad norm not finite")
     if cfg.is_moe and not all(math.isfinite(a) and a > 0 for a in aux):
@@ -1005,7 +1251,8 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
     return dict(launches=launches, by_variant=by_variant, steps=steps,
                 peak=peak, state_bytes=state_bytes, profile=profile, aux=aux,
                 k2_by_variant=k2_k3[0], k3_by_variant=k2_k3[1], cost=cost,
-                step_cost=bundle.cost)
+                step_cost=bundle.cost, k4_per_step=k4_steps,
+                k4_by_variant=k4_by_variant)
 
 
 def step_cost_line(tag, cfg, seq, bundle, count_s) -> dict:
@@ -2479,8 +2726,10 @@ CLI_STEPS = 3
 def step_cost_phase(ARCHS) -> dict:
     """``[step cost]``: the count of one reduced gemma2 step (f32, 2 x 128
     tokens) on the card equals the count on the CPU: K2 counts by its FLOP
-    formula whichever path its forward takes, and the rest is the same
-    dispatched ops."""
+    formula whichever path its forward takes, K4 by its bytes (the CPU
+    count routes the norms to K4's plain versions, as the card routes them
+    to the kernel), and the rest is the same dispatched ops."""
+    from repro_torch.kernels import rms_norm as K4
     from repro_torch.configs.registry import reduced
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.step_cost import count_step
@@ -2493,9 +2742,16 @@ def step_cost_phase(ARCHS) -> dict:
     grad_fn, _ = make_split_train_step(model, AdamW(OptConfig()))
     batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(
         cfg, DataConfig(batch=2, seq_len=128)).batch_at(0).items()}
-    cpu = count_step(grad_fn, params, batch)
+    takes = K4.takes
+    K4.takes = lambda t: type(t).__name__ != "DTensor"
+    try:
+        cpu = count_step(grad_fn, params, batch)
+    finally:
+        K4.takes = takes
     card = count_step(grad_fn, map_params(lambda t: t.cuda(), params),
                       {k: v.cuda() for k, v in batch.items()})
+    if not card.detail_bytes.get("rms_norm_bwd"):
+        raise AssertionError("[step cost] the card's step did not count K4")
     print(f"[step cost] reduced gemma2 (2 layers, d_model 64, f32, 2 x 128 "
           f"tokens): card {card.flops:.6g} FLOPs {card.bytes:.6g} bytes, "
           f"CPU {cpu.flops:.6g} FLOPs {cpu.bytes:.6g} bytes")
@@ -2533,7 +2789,8 @@ def dist_one_rank_phase(K, K2, K3, ARCHS) -> dict:
     within 5e-3: the reference's test_dist bounds), K2 launched as wgmma
     inside the attention core's region; deepseek-v2-lite-16b cut to
     ``DIST_LAYERS`` layers through the expert-parallel branch against the
-    local one (loss and every gradient); ``psum_compressed`` in its three
+    local one run with the composed norms, as the mesh runs them (loss and
+    every gradient); ``psum_compressed`` in its three
     methods over the group; the ``launch.train`` CLI for ``CLI_STEPS``
     steps of the gemma2 cut, with its PerfTracker report."""
     import socket
@@ -2542,6 +2799,7 @@ def dist_one_rank_phase(K, K2, K3, ARCHS) -> dict:
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.dist.sharding import DistCtx
+    from repro_torch.kernels import rms_norm as K4
     from repro_torch.launch import train as cli
     from repro_torch.models import moe as M
     from repro_torch.models.io import synth_batch
@@ -2611,7 +2869,15 @@ def dist_one_rank_phase(K, K2, K3, ARCHS) -> dict:
         mbatch = synth_batch(mcfg, "train", 1, TRAIN_SEQ, seed=1)
         mm1 = Transformer(mcfg)
         mp = mm1.init(0)
-        g1, mt1 = make_split_train_step(mm1, opt)[0](mp, mbatch)
+        # the local branch with the composed norms, as the mesh's DTensors
+        # run them: K4's output may sit one bf16 step from theirs, which
+        # can move a token's top-k experts; this check is about the
+        # expert-parallel branch, not the norm
+        takes, K4.takes = K4.takes, lambda t: False
+        try:
+            g1, mt1 = make_split_train_step(mm1, opt)[0](mp, mbatch)
+        finally:
+            K4.takes = takes
         mm2 = Transformer(mcfg, dist=d)
         ep_calls = []
         real_ep = M._moe_expert_parallel
@@ -2852,6 +3118,7 @@ def main() -> int:
         from repro_torch.kernels import _build
         from repro_torch.kernels import flash_attention as K2
         from repro_torch.kernels import pattern_summary as K
+        from repro_torch.kernels import rms_norm as K4
         from repro_torch.kernels import ssd_scan as K3
         from repro_torch.summarize.engine import summarize_profile
         from repro_torch.summarize.fleet import pack_fleet
@@ -2879,11 +3146,12 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("fp32 matmuls must not run in TF32")
 
-    # -- 1. build the three kernels at once ------------------------------------
+    # -- 1. build the four kernels at once -------------------------------------
     t = time.perf_counter()
     libs = _build.build_all([(K.SOURCE, "k1_pattern_summary"),
                              (K2.SOURCE, "k2_flash_attention"),
-                             (K3.SOURCE, "k3_ssd_scan")])
+                             (K3.SOURCE, "k3_ssd_scan"),
+                             (K4.SOURCE, "k4_rms_norm")])
     print(f"[build] {[lib.name for lib in libs]} in "
           f"{time.perf_counter() - t:.2f}s (parallel nvcc)")
     for lib in libs:
@@ -2895,6 +3163,7 @@ def main() -> int:
     K.pattern_summary.library()
     K2.flash_attention.library()
     K3.ssd_scan.library()
+    K4.rms_norm.library()
     for dt in (torch.bfloat16, torch.float32):
         print(f"[build] K2 {dt}: " + ", ".join(
             f"D={d} {K2.variant_for(dt, d)} "
@@ -3130,6 +3399,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.lap("K3 time")
 
+    # -- 8b. K4 against its plain versions, and its times ---------------------
+    k4_err = k4_checks(K4)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    k4_time = k4_timing(K4, flush)
+    del flush
+    torch.cuda.empty_cache()
+    clock.lap("K4 check and time")
+
     # -- 9. the full mamba2-2.7b trainer: the main path of K3 -----------------
     mcfg = ARCHS[MAMBA]
     mtr = trainer_phase("[mamba2 trainer]", mcfg, MAMBA_SEQ, (K, K2, K3),
@@ -3146,6 +3424,17 @@ def main() -> int:
     if mtr["by_variant"] != {"wgmma": mtr["launches"], "simt": 0}:
         raise AssertionError("the mamba2 trainer's K3 launches were not all "
                              "wgmma")
+    norms = 2 * mcfg.num_layers + 1
+    print(f"[mamba2 trainer] K4 launches a step {mtr['k4_per_step'][0]} "
+          f"(the pre-norm and the gated norm of each layer, and the final "
+          f"norm: {norms} each way), by variant over the {TRAIN_STEPS} "
+          f"counted steps {mtr['k4_by_variant']}")
+    if mtr["k4_per_step"] != [{"forward": norms, "backward": norms}] \
+            * TRAIN_STEPS or mtr["k4_by_variant"] != {
+                "plain": 2 * (mcfg.num_layers + 1) * TRAIN_STEPS,
+                "gated": 2 * mcfg.num_layers * TRAIN_STEPS}:
+        raise AssertionError("the mamba2 trainer's K4 launches were not one "
+                             "a norm each way")
     clock.lap("mamba2 trainer")
 
     # -- 10. the online loop: catalog, paper-window fleet, real rollback ------
@@ -3367,6 +3656,34 @@ def main() -> int:
             "serve_forward_launches_by_variant": hyb_serve["k3"],
             "serve_f32_forward_launches_by_variant":
                 hyb_serve["f32"]["k3"]},
+    }, {
+        "name": "rms_norm",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rms_norm.cu",
+        "replaces": None,
+        "why": "keeps the norms' f32 copies out of device memory (the "
+               "composed ops save them for autograd)",
+        "variant": "plain, gated",
+        "launches_per_mamba2_step": mtr["k4_per_step"][0],
+        "launches_by_variant": mtr["k4_by_variant"],
+        "gemma2_launches_per_step": tr["k4_per_step"][0],
+        "shape": "bf16 (1, 2048, 2560) plain, (1, 2048, 80, 64) gated: one "
+                 "mamba2-2.7b layer's two norms",
+        "max_abs_err": k4_err["out"],
+        "max_rel_err_rstd": k4_err["rstd"],
+        "max_rel_err_grad": k4_err["grad"],
+        "ms": k4_time["plain"]["ms"],
+        "backward_ms": k4_time["plain"]["backward_ms"],
+        "bound_ms": k4_time["plain"]["bound_ms"],
+        "bound_by": "bytes",
+        "plain_ms": k4_time["plain"]["plain_ms"],
+        "gated": k4_time["gated"],
+        "library_ms": k4_time["plain"]["library_ms"],
+        "library_call": "torch.nn.functional.rms_norm (the plain variant; "
+                        "no PyTorch call computes the gated one)",
+        "library_fwd_bwd_ms": k4_time["plain"]["library_fwd_bwd_ms"],
+        "dry_run": "traced through repro_torch::rms_norm_fwd / _bwd's fake "
+                   "implementations",
     }]}))
     print(f"[step cost] summary: " + json.dumps({
         "card_vs_cpu_reduced_gemma2": cost_check,

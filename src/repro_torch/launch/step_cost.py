@@ -30,6 +30,11 @@ is counted, and the call adds its kernel's own FLOP formula
 ``kernels.ssd_scan.ssd_flops``) and the bytes of its inputs and outputs.
 Their backwards run as plain torch on both devices and are counted as
 dispatched.  The count is therefore the same on the CPU and the card.
+K4 (``kernels.rms_norm``) computes no products: its two directions are
+custom ops that this mode counts as the single ops they are (no FLOPs,
+the bytes of their tensor arguments and results) on whichever thread
+autograd runs them; the CPU counts the same only where it takes K4 too
+(the models route CPU tensors to the composed norms, ``K4.takes``).
 
 On real tensors a count runs the step: one extra forward and backward.
 Under a ``FakeTensorMode`` (``launch.dryrun``) nothing runs: the ops whose

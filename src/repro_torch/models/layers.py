@@ -6,7 +6,9 @@ Conventions:
   * ``init_*`` take a ``torch.Generator`` and return params (the values
     differ from the reference's ``jax.random`` draws; tests carry the
     reference's own init across with ``models.convert``);
-  * norm/softmax run in fp32 regardless of activation dtype;
+  * norm/softmax run in fp32 regardless of activation dtype; on a CUDA
+    tensor that is not a DTensor the RMS norm is K4
+    (``repro_torch.kernels.rms_norm``), which computes the same function;
   * a stacked layer axis does not exist here: every layer holds its own
     tensors (the reference's ``scan`` becomes a Python loop).
 """
@@ -17,6 +19,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import rms_norm as K4
 
 Tensor = torch.Tensor
 
@@ -71,15 +75,19 @@ def init_norm(kind: str, d: int, dtype=torch.float32, device=None):
 
 
 def apply_norm(p, x: Tensor, kind: str, eps: float) -> Tensor:
-    xf = x.float()
+    """RMS norm or layernorm over the last dim in fp32, returned in x's
+    dtype.  The RMS norm of a tensor K4 takes (``K4.takes``) runs K4; every
+    other tensor runs its composed ops (``K4.rms_norm_reference``)."""
     if kind == "rms":
-        var = xf.square().mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(var + eps) * p["scale"].float()
-    else:  # layernorm
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = xf.var(dim=-1, keepdim=True, unbiased=False)
-        y = (xf - mu) * torch.rsqrt(var + eps)
-        y = y * p["scale"].float() + p["bias"].float()
+        if K4.takes(x):
+            return K4.rms_norm(x, p["scale"], eps)
+        return K4.rms_norm_reference(x.float(), p["scale"], eps)[0].to(
+            x.dtype)
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
     return y.to(x.dtype)
 
 

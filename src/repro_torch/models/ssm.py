@@ -28,6 +28,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import rms_norm as K4
 from repro_torch.kernels.ssd_scan import masked_decay, ssd_scan
 from repro_torch.models import layers as L
 
@@ -169,8 +170,8 @@ def _scan_region(impl, dist, chunk: int):
 
 def apply_mamba2(p, x: Tensor, cfg, impl=ssd_k3, dist=None) -> Tensor:
     """Full Mamba2 block (train/prefill).  Under ``dist`` the scan runs in a
-    local-shard region (``_scan_region``)."""
-    di, N, G, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_groups, cfg.ssm_heads
+    local-shard region (``_scan_region``); the tail is ``gated_norm``."""
+    N, G, H = cfg.ssm_state, cfg.ssm_groups, cfg.ssm_heads
     P = cfg.ssm_head_dim
     Bsz, S, _ = x.shape
     z = x @ p["w_z"]
@@ -192,11 +193,22 @@ def apply_mamba2(p, x: Tensor, cfg, impl=ssd_k3, dist=None) -> Tensor:
         y = _scan_region(impl, dist, cfg.ssm_chunk)(xs, dt, A, Bm, Cm)
     else:
         y, _ = impl(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
-    y = y + xs.float() * p["D"][:, None]
-    y = L.reshape(y, (Bsz, S, di)).to(x.dtype)
-    y = y * F.silu(z)
-    y = L.apply_norm({"scale": p["gate_norm"]}, y, "rms", cfg.norm_eps)
+    y = gated_norm(y, xs, p["D"], z, p["gate_norm"], cfg.norm_eps)
     return y @ p["out_proj"]
+
+
+def gated_norm(y: Tensor, xs: Tensor, D: Tensor, z: Tensor, scale: Tensor,
+               eps: float) -> Tensor:
+    """``apply_mamba2``'s tail from the scan's output y and xs ``(B, S, H,
+    P)`` to ``out_proj``'s input: the skip through D, the gate silu(z) and
+    the RMS norm, in z's shape ``(B, S, H P)``.  K4's gated variant on a
+    tensor K4 takes (``K4.takes``), its composed ops (``K4.gate``, then
+    ``apply_norm``) on any other."""
+    if K4.takes(y):
+        return K4.rms_norm.gated(y, xs, D, z, scale, eps)
+    u, s = K4.gate(y, xs, D, z)
+    return L.apply_norm({"scale": scale}, L.reshape(u, z.shape) * s, "rms",
+                        eps)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Kernels K1, K2 and K3: wrappers and plain versions, and (marked ``gpu``)
-each kernel against its plain version on a CUDA device.
+"""Kernels K1, K2, K3 and K4: wrappers and plain versions, and (marked
+``gpu``) each kernel against its plain version on a CUDA device.
 
 This file imports neither JAX nor the reference package, so it also runs on
 the card's machine:  ``python -m pytest -q -m gpu tests/test_torch_kernels.py``.
@@ -26,6 +26,7 @@ from repro_torch.kernels.ssd_scan import VARIANTS as K3_VARIANTS
 from repro_torch.kernels.ssd_scan import (ssd_oracle, ssd_scan,
                                           ssd_scan_reference)
 from repro_torch.kernels.ssd_scan import variant_for as k3_variant_for
+from repro_torch.kernels import rms_norm as K4
 
 from _torch_inputs import EDGE_EXPECTED, case, edge_rows, long_row, matrices
 # autouse fixture: torch on one CPU thread
@@ -715,3 +716,113 @@ def test_k3_reads_strided_inputs_and_rejects_what_it_does_not_take():
     pairs = torch.randn((2, 128, 2, 16, 2), generator=g, device="cuda")
     with pytest.raises(ValueError):               # last dim not contiguous
         ssd_scan.run(x, dt, A, pairs[..., 0], pairs[..., 1], 32)
+
+
+def _k4_inputs(variant, dtype, lead, width, seed, pad=0, scale_dtype=None):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    if variant == "plain":
+        n = width
+        ins = [r(*lead, n + pad).to(dtype)[..., :n],
+               (1 + 0.1 * r(n)).to(scale_dtype or dtype)]
+    else:
+        H, P = width
+        n = H * P
+        ins = [r(*lead, H, P).to(dtype), r(*lead, H, P).to(dtype),
+               1 + 0.5 * r(H), (2 * r(*lead, n)).to(dtype),
+               (1 + 0.1 * r(n)).to(scale_dtype or dtype)]
+    return ins, r(*lead, n).to(dtype)
+
+
+def _k4_run(variant, ins, g):
+    rms = K4.rms_norm
+    if variant == "plain":
+        out, rstd = rms.forward(ins[0], ins[1], 1e-5)
+        return out, rstd, rms.backward(g, ins[0], ins[1], rstd)
+    y, xs, D, z, scale = ins
+    out, rstd = rms.forward(y, scale, 1e-5, xs, D, z)
+    return out, rstd, rms.backward(g, y, scale, rstd, xs, D, z)
+
+
+def _k4_plain(variant, ins, g):
+    if variant == "plain":
+        out, rstd = K4.rms_norm_reference(ins[0], ins[1], 1e-5)
+        return out, rstd, K4.rms_norm_backward_reference(g, ins[0], ins[1],
+                                                         rstd)
+    out, rstd = K4.gated_rms_norm_reference(*ins, 1e-5)
+    y, xs, D, z, scale = ins
+    return out, rstd, K4.gated_rms_norm_backward_reference(
+        g, y, xs, D, z, scale, rstd)
+
+
+#: (variant, dtype, scale dtype, leading dims, width or (H, P), padding):
+#: mamba2-2.7b's two norms, MLA's strided latent, widths off the vector
+K4_CASES = [("plain", torch.bfloat16, None, (1, 2048), 2560, 0),
+            ("plain", torch.float32, None, (2, 300), 2560, 0),
+            ("gated", torch.bfloat16, None, (1, 2048), (80, 64), 0),
+            ("gated", torch.float32, None, (1, 512), (80, 64), 0),
+            ("plain", torch.bfloat16, None, (2, 256), 512, 64),
+            ("plain", torch.bfloat16, torch.float32, (7,), 100, 0),
+            ("gated", torch.bfloat16, torch.float32, (2, 9), (3, 12), 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K4_CASES)
+def test_k4_matches_plain_version_on_card(case):
+    """The output within one bf16 step of the plain version elementwise
+    (f32: 1e-5 of the largest), rstd within 1e-5, each gradient within
+    2^-6 (bf16: the same f32 value rounded after sums in another order) or
+    1e-4 (f32) of its largest; the backward the same bits run after run."""
+    _cuda()
+    variant, dtype, sdt, lead, width, pad = case
+    ins, g = _k4_inputs(variant, dtype, lead, width, 3, pad, sdt)
+    out, rstd, grads = _k4_run(variant, ins, g)
+    again = _k4_run(variant, ins, g)[2]
+    ref, ref_rstd, ref_grads = _k4_plain(variant, ins, g)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == ref.shape
+    if dtype == torch.bfloat16:
+        assert bool(((out.float() - ref.float()).abs()
+                     <= 2.0 ** -7 * ref.float().abs()).all())
+    else:
+        assert float((out - ref).abs().max() / ref.abs().max()) < 1e-5
+    assert float(((rstd - ref_rstd).abs() / ref_rstd).max()) < 1e-5
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    for a, b, c in zip(grads, ref_grads, again):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max()) < tol
+        assert torch.equal(a.view(torch.uint8), c.view(torch.uint8))
+
+
+@pytest.mark.gpu
+def test_k4_counts_launches_by_variant_and_direction():
+    _cuda()
+    K4.rms_norm.reset_counts()
+    (x, s), g = _k4_inputs("plain", torch.bfloat16, (4, 8), 256, 1)
+    x, s = x.requires_grad_(True), s.requires_grad_(True)
+    torch.autograd.grad(K4.rms_norm(x, s, 1e-5), (x, s), g)
+    ins, g = _k4_inputs("gated", torch.bfloat16, (4, 8), (4, 64), 2)
+    ins = [t.requires_grad_(True) for t in ins]
+    torch.autograd.grad(K4.rms_norm.gated(*ins, 1e-5), ins, g)
+    torch.cuda.synchronize()
+    assert K4.rms_norm.launches == 4
+    assert K4.rms_norm.launches_by_variant == {"plain": 2, "gated": 2}
+    assert K4.rms_norm.launches_by_direction == {"forward": 2,
+                                                 "backward": 2}
+
+
+@pytest.mark.gpu
+def test_k4_rejects_what_it_does_not_take():
+    _cuda()
+    (x, s), _ = _k4_inputs("plain", torch.bfloat16, (4, 8), 256, 1)
+    before = K4.rms_norm.launches
+    with pytest.raises(TypeError):
+        K4.rms_norm.forward(x.half(), s, 1e-5)
+    with pytest.raises(ValueError):
+        K4.rms_norm.forward(x.transpose(0, 1), s, 1e-5)
+    with pytest.raises(ValueError):
+        K4.rms_norm.forward(x[..., ::2], s[:128], 1e-5)
+    assert K4.rms_norm.launches == before
