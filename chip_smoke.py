@@ -228,6 +228,10 @@ ZAMBA_TRAIN_LAYERS = 15
 ZAMBA_REMAT_STEPS = 2
 REMAT_RTOL = 1e-3    # remat="full" losses and grad norms vs the run without
 K2_112_LSE_TOL = 1e-5   # K2's lse at head dim 112 vs its plain version
+#: the published Zamba2-7B's shared attention (zamba2-7b-instruct): 32
+#: heads of 224, full causal, scale (224 / 2)^-0.5, 4096 tokens a step
+INSTRUCT_HEADS, INSTRUCT_D, INSTRUCT_SEQ = 32, 224, 4096
+INSTRUCT_SCALE = 112 ** -0.5
 #: K3's wgmma passes, in launch order (device kernel names)
 K3_PASSES = ("ssd_fwd_state", "ssd_fwd_pass", "ssd_fwd_cb", "ssd_fwd_scan")
 K3_PROFILED_CALLS = 3
@@ -461,14 +465,19 @@ def k2_checks(K2) -> dict:
     shared attention at head dim 112 (32 heads, 32 kv heads, window 4096:
     the trainer's 2048 tokens, the serve forward's 4 x 48, 200 tokens, 8192
     where the window bites, q/k/v as strided views of one fused projection,
-    and f32 on the SIMT kernel), whose lse is held to 1e-5.  Each case must
-    run the variant ``variant_for`` names."""
+    and f32 on the SIMT kernel), whose lse is held to 1e-5, and the
+    published Zamba2-7B's at head dim 224 (32 heads, full causal, scale
+    112^-0.5: its training step's 4096 tokens, 200 tokens, views of one
+    fused qkv, and f32 on the SIMT kernel) under K2's bf16 and f32 limits,
+    each counted at head dim 224.  Each case must run the variant
+    ``variant_for`` names."""
     g = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     worst_lse = 0.0
     bf16_ratio = 0.0      # worst |err| / (ATOL + RTOL * |ref|) in bf16
     mla_worst = 0.0       # worst |err| at MLA's (192, 128)
     z_worst = {"out": 0.0, "lse": 0.0}   # worst |err| at head dim 112
+    i_worst = {"out": 0.0, "lse": 0.0}   # worst |err| at head dim 224
     cases = [(torch.bfloat16, (1, S, 8, 4, 256),
               dict(GEMMA_ATTN, window=w), name)
              for S in (TRAIN_SEQ, 8192)
@@ -517,6 +526,15 @@ def k2_checks(K2) -> dict:
                   (torch.bfloat16, 1, 8192, "(8192 tokens: the window bites)"),
                   (torch.bfloat16, 1, TRAIN_SEQ, "(views of one fused qkv)"),
                   (torch.float32, 1, TRAIN_SEQ, "(f32)"))]
+    ikw = dict(scale=INSTRUCT_SCALE)
+    IH, ID, IS = INSTRUCT_HEADS, INSTRUCT_D, INSTRUCT_SEQ
+    cases += [(dtype, (1, S, IH, IH, ID), ikw, f"zamba2-7b-instruct shared "
+               f"attention {name}")
+              for dtype, S, name in (
+                  (torch.bfloat16, IS, "(training step)"),
+                  (torch.bfloat16, 200, "(200 tokens)"),
+                  (torch.bfloat16, IS, "(views of one fused qkv)"),
+                  (torch.float32, IS, "(f32)"))]
     for dtype, (B, S, H, KV, D, *Dv), kw, name in cases:
         Dv = Dv[0] if Dv else D
         if "fused" in name:       # strides of a (B, S, 3, H, D) projection
@@ -529,11 +547,14 @@ def k2_checks(K2) -> dict:
             v = _rand(g, (B, S, KV, Dv), dtype)
         variant = K2.variant_for(dtype, D, Dv)
         before = K2.flash_attention.launches_by_variant[variant]
+        before_d = K2.flash_attention.launches_by_head_dim[D]
         out, lse = K2.flash_attention(q, k, v, return_lse=True, **kw)
         ref, ref_lse = K2.flash_attention_reference(q, k, v, **kw)
         torch.cuda.synchronize()
-        if K2.flash_attention.launches_by_variant[variant] != before + 1:
-            raise AssertionError(f"K2 case {name} did not run {variant}")
+        if K2.flash_attention.launches_by_variant[variant] != before + 1 \
+                or K2.flash_attention.launches_by_head_dim[D] != before_d + 1:
+            raise AssertionError(f"K2 case {name} did not run {variant} "
+                                 f"at head dim {D}")
         if not (torch.isfinite(out).all() and out.shape == ref.shape
                 and out.dtype == dtype):
             raise AssertionError(f"K2 output not finite or misshapen ({name})")
@@ -555,9 +576,10 @@ def k2_checks(K2) -> dict:
               f"{lse_err:.3g}{extra}")
         if Dv != D:
             mla_worst = max(mla_worst, err)
-        if D == 112:
-            z_worst["out"] = max(z_worst["out"], err)
-            z_worst["lse"] = max(z_worst["lse"], lse_err)
+        if D in (112, INSTRUCT_D):
+            zw = z_worst if D == 112 else i_worst
+            zw["out"] = max(zw["out"], err)
+            zw["lse"] = max(zw["lse"], lse_err)
         del q, k, v, out, lse, ref, ref_lse, diff
     print(f"[k2 check] worst bf16 {worst[torch.bfloat16]:.4g} at "
           f"{bf16_ratio:.3g} of its limit ({BF16_ATOL} + {BF16_RTOL} "
@@ -565,13 +587,15 @@ def k2_checks(K2) -> dict:
           f"{K2_F32_TOL}), worst lse {worst_lse:.3g} (tolerance "
           f"{K2_LSE_TOL}); at head dim 112: worst |out err| "
           f"{z_worst['out']:.4g}, worst lse {z_worst['lse']:.3g} (tolerance "
-          f"{K2_112_LSE_TOL})")
+          f"{K2_112_LSE_TOL}); at head dim {INSTRUCT_D}: worst |out err| "
+          f"{i_worst['out']:.4g}, worst lse {i_worst['lse']:.3g}")
     if bf16_ratio > 1.0 or worst[torch.float32] > K2_F32_TOL \
             or not worst_lse <= K2_LSE_TOL \
             or not z_worst["lse"] <= K2_112_LSE_TOL:
         raise AssertionError("K2 disagrees with its plain version")
     return {"bf16": worst[torch.bfloat16], "f32": worst[torch.float32],
-            "lse": worst_lse, "mla": mla_worst, "zamba": z_worst}
+            "lse": worst_lse, "mla": mla_worst, "zamba": z_worst,
+            "instruct": i_worst}
 
 
 def sass_counts(lib: Path) -> dict | None:
@@ -705,9 +729,10 @@ SDPA_KERNELS = (("cudnn", "cudnn"), ("efficient", "fmha"),
 
 
 def k2_sdpa_timing(K2, flush, label: str, H: int, D: int, Dv: int,
-                   scale: float, window: int = 0, seed: int = 4) -> dict:
+                   scale: float, window: int = 0, seed: int = 4,
+                   seq: int = TRAIN_SEQ) -> dict:
     """K2 at one model's attention as the trainer hands it over: bf16 q/k
-    (1, 2048, H, D), v (1, 2048, H, Dv), causal, with the model's scale
+    (1, seq, H, D), v (1, seq, H, Dv), causal, with the model's scale
     and window (one that does not bite at 2048 tokens); by CUDA events and
     by ``torch.profiler`` device time (3 calls), beside its bound, its
     plain version and ``scaled_dot_product_attention`` with
@@ -717,9 +742,9 @@ def k2_sdpa_timing(K2, flush, label: str, H: int, D: int, Dv: int,
     from torch.profiler import ProfilerActivity, profile
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = _rand(g, (1, TRAIN_SEQ, H, D), torch.bfloat16)
-    k = _rand(g, (1, TRAIN_SEQ, H, D), torch.bfloat16)
-    v = _rand(g, (1, TRAIN_SEQ, H, Dv), torch.bfloat16)
+    q = _rand(g, (1, seq, H, D), torch.bfloat16)
+    k = _rand(g, (1, seq, H, D), torch.bfloat16)
+    v = _rand(g, (1, seq, H, Dv), torch.bfloat16)
     kw = dict(scale=scale, window=window)
     kms = timed_ms(lambda: K2.flash_attention(q, k, v, **kw), TIMED_LAUNCHES,
                    flush)
@@ -750,8 +775,8 @@ def k2_sdpa_timing(K2, flush, label: str, H: int, D: int, Dv: int,
     backend = next((b for b, frag in SDPA_KERNELS
                     if any(frag in n.lower() for n in names)), "unknown")
     dev = sum(own) / len(own) if own else 0.0
-    print(f"[k2 time] {label} bf16 q/k (1, {TRAIN_SEQ}, {H}, {D}) v "
-          f"(1, {TRAIN_SEQ}, {H}, {Dv}) causal, window {window}, scale "
+    print(f"[k2 time] {label} bf16 q/k (1, {seq}, {H}, {D}) v "
+          f"(1, {seq}, {H}, {Dv}) causal, window {window}, scale "
           f"{scale:.6g}: kernel {kms:.4f} ms (device "
           f"{dev:.4f} ms by torch.profiler over {len(own)} calls), bound "
           f"{bms:.4f} ms by {by} ({share(bms, kms)} of bound), plain "
@@ -945,7 +970,9 @@ def k3_timing(K3, flush) -> dict:
 #: leading dims, width n or (H, P), columns past n in each row): mamba2-2.7b's
 #: pre-norm and gated norm in bf16 and f32, deepseek-v2's MLA latent norm
 #: (the first 512 of each 576-wide row of the down projection, a strided
-#: view), and widths that take the one-element vector
+#: view), widths that take the one-element vector, and the published
+#: Zamba2-7B's gated norm per group (112 heads of 64 in 2 groups of 3584,
+#: one rstd a row and group; an 8th field, the groups, 1 where absent)
 K4_CASES = (
     ("mamba2 pre-norm", "plain", torch.bfloat16, torch.bfloat16,
      (1, MAMBA_SEQ), 2560, 0),
@@ -961,7 +988,14 @@ K4_CASES = (
      (5, 3), 100, 0),
     ("gated 3 x 12", "gated", torch.bfloat16, torch.bfloat16, (2, 9),
      (3, 12), 0),
+    ("zamba2-7b-instruct grouped gated norm", "gated", torch.bfloat16,
+     torch.bfloat16, (1, INSTRUCT_SEQ), (112, 64), 0, 2),
 )
+
+
+def k4_groups(case) -> int:
+    """A ``K4_CASES`` case's norm groups."""
+    return case[7] if len(case) > 7 else 1
 #: K4 vs its plain version, gradients: max |err| / max |ref| (bf16: both
 #: round the same f32 value to bf16 after sums taken in another order, one
 #: step is 2^-7 of a value at most; f32: the sums' order)
@@ -995,7 +1029,7 @@ def queued_ms(fn, reps: int, flush: torch.Tensor) -> float:
 def k4_inputs(case, seed: int) -> list:
     """(x, scale) or (y, xs, D, z, scale) and the output's gradient, on the
     card, from the seed."""
-    _, variant, dt, wdt, lead, width, pad = case
+    _, variant, dt, wdt, lead, width, pad = case[:7]
     g = torch.Generator(device="cuda").manual_seed(seed)
     if variant == "plain":
         base = _rand(g, (*lead, width + pad), dt)
@@ -1012,31 +1046,31 @@ def k4_inputs(case, seed: int) -> list:
     return ins, _rand(g, (*lead, n), dt)
 
 
-def k4_call(K4, variant, ins):
+def k4_call(K4, variant, ins, groups: int = 1):
     """K4's forward on ``ins`` as the op takes them: (out, rstd)."""
     if variant == "plain":
         return K4.rms_norm.forward(ins[0], ins[1], 1e-5)
     y, xs, D, z, scale = ins
-    return K4.rms_norm.forward(y, scale, 1e-5, xs, D, z)
+    return K4.rms_norm.forward(y, scale, 1e-5, xs, D, z, groups)
 
 
-def k4_backward(K4, variant, ins, g, rstd):
+def k4_backward(K4, variant, ins, g, rstd, groups: int = 1):
     if variant == "plain":
         return K4.rms_norm.backward(g, ins[0], ins[1], rstd)
     y, xs, D, z, scale = ins
-    return K4.rms_norm.backward(g, y, scale, rstd, xs, D, z)
+    return K4.rms_norm.backward(g, y, scale, rstd, xs, D, z, groups)
 
 
-def k4_reference(K4, variant, ins, g):
+def k4_reference(K4, variant, ins, g, groups: int = 1):
     """The plain versions on the card: (out, rstd, grads)."""
     if variant == "plain":
         out, rstd = K4.rms_norm_reference(ins[0], ins[1], 1e-5)
         return out, rstd, list(K4.rms_norm_backward_reference(
             g, ins[0], ins[1], rstd))
-    out, rstd = K4.gated_rms_norm_reference(*ins, 1e-5)
+    out, rstd = K4.gated_rms_norm_reference(*ins, 1e-5, groups)
     y, xs, D, z, scale = ins
     return out, rstd, K4.gated_rms_norm_backward_reference(
-        g, y, xs, D, z, scale, rstd)
+        g, y, xs, D, z, scale, rstd, groups)
 
 
 def k4_checks(K4) -> dict:
@@ -1049,14 +1083,20 @@ def k4_checks(K4) -> dict:
     worst = {"out": 0.0, "rstd": 0.0, "grad": 0.0}
     for i, case in enumerate(K4_CASES):
         label, variant, dt = case[:3]
+        G = k4_groups(case)
         ins, g = k4_inputs(case, 40 + i)
         before = (K4.rms_norm.launches_by_variant[variant],
                   dict(K4.rms_norm.launches_by_direction))
-        out, rstd = k4_call(K4, variant, ins)
-        grads = k4_backward(K4, variant, ins, g, rstd)
-        again = [k4_backward(K4, variant, ins, g, rstd) for _ in range(2)]
+        out, rstd = k4_call(K4, variant, ins, G)
+        grads = k4_backward(K4, variant, ins, g, rstd, G)
+        again = [k4_backward(K4, variant, ins, g, rstd, G) for _ in range(2)]
         torch.cuda.synchronize()
-        ref_out, ref_rstd, ref_grads = k4_reference(K4, variant, ins, g)
+        ref_out, ref_rstd, ref_grads = k4_reference(K4, variant, ins, g, G)
+        if rstd.shape != ref_rstd.shape or tuple(rstd.shape) != tuple(
+                out.shape[:-1]) + ((G,) if G > 1 else ()):
+            raise AssertionError(f"[k4 check] {label}: rstd "
+                                 f"{tuple(rstd.shape)}, not one a row and "
+                                 f"group")
         if K4.rms_norm.launches_by_variant[variant] != before[0] + 4 or \
                 K4.rms_norm.launches_by_direction != {
                     "forward": before[1]["forward"] + 1,
@@ -1077,8 +1117,10 @@ def k4_checks(K4) -> dict:
         tol = K4_BF16_TOL if dt == torch.bfloat16 else K4_F32_TOL
         same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
                    for run in again for a, b in zip(grads, run))
-        vec = "16 bytes" if _k4_vec(K4, variant, ins) > 1 else "one element"
-        print(f"[k4 check] {label} ({variant}, {dt}, scale {case[3]}, "
+        vec = "16 bytes" if _k4_vec(K4, variant, ins, G) > 1 \
+            else "one element"
+        print(f"[k4 check] {label} ({variant}, groups {G}, {dt}, scale "
+              f"{case[3]}, "
               f"{tuple(out.shape)}, vector of {vec}): "
               f"out max |err| {out_err:.3g} (within one bf16 step: "
               f"{ok_out}), rstd {rstd_err:.3g}, gradients "
@@ -1094,43 +1136,48 @@ def k4_checks(K4) -> dict:
     return worst
 
 
-def _k4_vec(K4, variant, ins) -> int:
+def _k4_vec(K4, variant, ins, groups: int = 1) -> int:
     """The vector K4's wrapper picks for ``ins``, in elements."""
     acts = [ins[0]] if variant == "plain" else [ins[0], ins[1], ins[3]]
     strides = K4.row_strides(*acts) if variant == "gated" \
         else K4.row_strides(ins[0], None, None)
-    return K4._vec(acts + [ins[-1]], list(strides), ins[0].dtype,
-                   ins[0].shape[-1])
+    widths = (ins[0].shape[-1],) if variant == "plain" else (
+        ins[0].shape[-1], ins[3].shape[-1] // groups)
+    return K4._vec(acts + [ins[-1]], list(strides), ins[0].dtype, *widths)
 
 
 def k4_timing(K4, flush) -> dict:
-    """K4 at mamba2-2.7b's two norms (bf16), each direction by CUDA events
+    """K4 at mamba2-2.7b's two norms (bf16) and at the published Zamba2-7B's
+    grouped gated norm (``"gated_g2"``), each direction by CUDA events
     queued behind a spin, beside its bytes bound, the composed ops it
     replaces (its plain versions: the forward, and forward + backward
     under autograd) and, for the plain variant, PyTorch's own
     ``F.rms_norm`` (the same function; no PyTorch call computes the gated
     one) by the same clock."""
     out = {}
-    for case in K4_CASES[:3:2]:
+    for case in K4_CASES[:3:2] + K4_CASES[-1:]:
         label, variant = case[:2]
+        G = k4_groups(case)
+        key = variant if G == 1 else f"{variant}_g{G}"
         ins, g = k4_inputs(case, 7)
-        fwd = queued_ms(lambda: k4_call(K4, variant, ins), TIMED_LAUNCHES,
+        fwd = queued_ms(lambda: k4_call(K4, variant, ins, G), TIMED_LAUNCHES,
                         flush)
-        res, rstd = k4_call(K4, variant, ins)
-        grads = k4_backward(K4, variant, ins, g, rstd)
-        bwd = queued_ms(lambda: k4_backward(K4, variant, ins, g, rstd),
+        res, rstd = k4_call(K4, variant, ins, G)
+        grads = k4_backward(K4, variant, ins, g, rstd, G)
+        bwd = queued_ms(lambda: k4_backward(K4, variant, ins, g, rstd, G),
                         TIMED_LAUNCHES, flush)
         fwd_bound = K4.bound_ms(ins + [res, rstd])
         bwd_bound = K4.bound_ms([g, rstd] + ins + list(grads))
         grad_ins = [t.detach().requires_grad_(True) for t in ins]
+        extra = () if variant == "plain" else (G,)
         reference = (K4.rms_norm_reference if variant == "plain"
                      else K4.gated_rms_norm_reference)
-        plain_fwd = queued_ms(lambda: reference(*ins, 1e-5), TIMED_LAUNCHES,
-                              flush)
+        plain_fwd = queued_ms(lambda: reference(*ins, 1e-5, *extra),
+                              TIMED_LAUNCHES, flush)
 
         def plain_both():
             with torch.enable_grad():
-                o = reference(*grad_ins, 1e-5)[0]
+                o = reference(*grad_ins, 1e-5, *extra)[0]
                 torch.autograd.grad(o, grad_ins, g)
         plain_both_ms = queued_ms(plain_both, TIMED_LAUNCHES, flush)
         lib_ms = lib_both_ms = None
@@ -1154,14 +1201,15 @@ def k4_timing(K4, flush) -> dict:
                        f"one bf16 step of K4's: "
                        f"{bool((d <= 2.0 ** -7 * res.float().abs()).all())}"
                        f", max |diff| {float(d.max()):.3g})")
-        print(f"[k4 time] {label} {tuple(res.shape)} bf16: forward "
+        print(f"[k4 time] {label} {tuple(res.shape)} bf16, groups {G}: "
+              f"forward "
               f"{fwd:.4f} ms (bound {fwd_bound:.4f} ms by bytes, "
               f"{fwd_bound / fwd:.1%}), backward {bwd:.4f} ms (bound "
               f"{bwd_bound:.4f} ms, {bwd_bound / bwd:.1%}); the composed "
               f"ops: forward {plain_fwd:.4f} ms, forward + backward "
               f"{plain_both_ms:.4f} ms (K4 {fwd + bwd:.4f} ms); library: "
               f"{library}")
-        out[variant] = dict(ms=fwd, backward_ms=bwd, bound_ms=fwd_bound,
+        out[key] = dict(ms=fwd, backward_ms=bwd, bound_ms=fwd_bound,
                             backward_bound_ms=bwd_bound, plain_ms=plain_fwd,
                             plain_fwd_bwd_ms=plain_both_ms, library_ms=lib_ms,
                             library_fwd_bwd_ms=lib_both_ms)
@@ -3350,6 +3398,9 @@ def main() -> int:
                             MLA_SCALE)
     k2_zamba = k2_sdpa_timing(K2, flush, "zamba2-7b shared attention", 32,
                               112, 112, 112 ** -0.5, ZAMBA_WINDOW, seed=5)
+    k2_instruct = k2_sdpa_timing(
+        K2, flush, "zamba2-7b-instruct shared attention", INSTRUCT_HEADS,
+        INSTRUCT_D, INSTRUCT_D, INSTRUCT_SCALE, seed=6, seq=INSTRUCT_SEQ)
     bwd = attention_backward_ms(C, K2, flush)
     head = logits_ce_ms(L, flush)
     del flush
@@ -3626,6 +3677,23 @@ def main() -> int:
                             f"scale=112^-0.5), backend "
                             f"{k2_zamba['library_backend']}",
             "library_max_abs_err": k2_zamba["library_err"]},
+        "zamba2_instruct_shape": {
+            "shape": f"bf16 q/k/v (1, {INSTRUCT_SEQ}, {INSTRUCT_HEADS}, "
+                     f"{INSTRUCT_D}), causal, scale 112^-0.5: "
+                     f"zamba2-7b-instruct's shared attention (tiles of 256, "
+                     f"columns 224-255 zero)",
+            "max_abs_err": k2_err["instruct"]["out"],
+            "max_abs_err_lse": k2_err["instruct"]["lse"],
+            "ms": k2_instruct["ms"],
+            "device_ms": k2_instruct["device_ms"],
+            "plain_ms": k2_instruct["plain_ms"],
+            "bound_ms": k2_instruct["bound_ms"],
+            "bound_by": k2_instruct["bound_by"],
+            "library_ms": k2_instruct["library_ms"],
+            "library_call": "scaled_dot_product_attention(is_causal=True, "
+                            f"scale=112^-0.5), backend "
+                            f"{k2_instruct['library_backend']}",
+            "library_max_abs_err": k2_instruct["library_err"]},
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -3678,6 +3746,10 @@ def main() -> int:
         "bound_by": "bytes",
         "plain_ms": k4_time["plain"]["plain_ms"],
         "gated": k4_time["gated"],
+        "grouped_gated": dict(
+            k4_time["gated_g2"],
+            shape="bf16 (1, 4096, 112, 64), 2 groups of 3584: one "
+                  "zamba2-7b-instruct layer's gated norm"),
         "library_ms": k4_time["plain"]["library_ms"],
         "library_call": "torch.nn.functional.rms_norm (the plain variant; "
                         "no PyTorch call computes the gated one)",

@@ -74,6 +74,15 @@ class ModelConfig:
     ssm_chunk: int = 256
     conv_width: int = 4
     shared_attn_every: int = 0  # zamba2: shared-weight attn block every k ssm layers
+    ssm_grouped_norm: bool = False  # the gated norm per group of d_inner / ssm_groups
+
+    # -- published zamba2 layout (``hybrid_layer_ids`` non-empty) -----------
+    # each shared block reads rms(concat(x, embedding)); each hybrid layer
+    # holds a gate_up adapter and a d x d linear on the block's output
+    hybrid_layer_ids: Tuple[int, ...] = ()  # layers that apply a shared block
+    num_mem_blocks: int = 1     # shared blocks, taken in turn: A, B, A, ...
+    adapter_rank: int = 0       # rank of the hybrid layers' gate_up adapters
+    gelu_exact: bool = False    # erf GELU (else the tanh approximation)
 
     # -- modality frontend stubs -------------------------------------------
     frontend: str = ""          # "" | vision | audio
@@ -109,9 +118,22 @@ class ModelConfig:
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    @property
+    def published_hybrid(self) -> bool:
+        """The published Zamba2 layout: mamba layers, some of them hybrid
+        (``hybrid_layer_ids``), and ``num_mem_blocks`` shared blocks."""
+        return self.family == "hybrid" and bool(self.hybrid_layer_ids)
+
+    @property
+    def hybrid_ids(self) -> Tuple[int, ...]:
+        """The hybrid layers among the ``num_layers`` held."""
+        return tuple(i for i in self.hybrid_layer_ids if i < self.num_layers)
+
     # Parameter count (analytic; the reference checks it against its init) --
     def param_counts(self) -> dict:
         """Returns dict with total / active / embedding parameter counts."""
+        if self.published_hybrid:
+            return self._published_hybrid_counts()
         d, ff, V = self.d_model, self.d_ff, self.padded_vocab
         counts = {"embed": V * d}
         L = self.num_layers
@@ -188,6 +210,30 @@ class ModelConfig:
         counts["total"] = total
         counts["active"] = active
         return counts
+
+    def _published_hybrid_counts(self) -> dict:
+        """Every leaf ``Transformer.init`` makes for the published layout,
+        norm scales, conv biases and the SSM's per-head vectors included;
+        the shared blocks once."""
+        d, V, ff = self.d_model, self.padded_vocab, self.d_ff
+        di, GN, H = self.d_inner, self.ssm_groups * self.ssm_state, \
+            self.ssm_heads
+        mamba = (d                                   # ln
+                 + d * (2 * di + 2 * GN + H)         # w_z, w_x, w_B, w_C, w_dt
+                 + (di + 2 * GN) * (self.conv_width + 1)   # convs, biases
+                 + 3 * H                             # A_log, D, dt_bias
+                 + di                                # gate_norm
+                 + di * d)                           # out_proj
+        gates = 2 if self.mlp in ("swiglu", "geglu") else 1
+        hybrid = self.adapter_rank * (d + gates * ff) + d * d   # adapter, linear
+        d_in = 2 * d                                # concat(x, embedding)
+        hd, nh, kv = self.head_dim, self.num_heads, self.num_kv_heads
+        block = (d_in + d_in * (nh + 2 * kv) * hd + nh * hd * d   # ln1, attn
+                 + d + d * ff * gates + ff * d)                    # ln2, mlp
+        total = V * d * (1 if self.tie_embeddings else 2) + d \
+            + self.num_layers * mamba + len(self.hybrid_ids) * hybrid \
+            + self.num_mem_blocks * block
+        return {"embed": V * d, "total": total, "active": total}
 
 
 @dataclass(frozen=True)

@@ -17,6 +17,7 @@ from repro_torch.configs import (  # noqa: F401
     internvl2_1b,
     musicgen_medium,
     zamba2_7b,
+    zamba2_7b_instruct,
 )
 
 ARCHS: Dict[str, ModelConfig] = {
@@ -36,9 +37,19 @@ ARCHS: Dict[str, ModelConfig] = {
 }
 
 
+#: configurations the JAX reference has no counterpart of (``ARCHS`` stays
+#: its list, which the parity tests walk): models as published
+PUBLISHED: Dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (zamba2_7b_instruct,)
+}
+
+
 def get_arch(name: str) -> ModelConfig:
+    if name in PUBLISHED:
+        return PUBLISHED[name]
     if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {name!r}; available: "
+                       f"{sorted(ARCHS) + sorted(PUBLISHED)}")
     return ARCHS[name]
 
 
@@ -91,4 +102,5 @@ def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 64,
     return cfg.with_overrides(**kw)
 
 
-__all__ = ["ARCHS", "get_arch", "get_shape", "reduced", "shapes_for"]
+__all__ = ["ARCHS", "PUBLISHED", "get_arch", "get_shape", "reduced",
+           "shapes_for"]

@@ -1,5 +1,10 @@
-"""zamba2-7b — hybrid: Mamba2 backbone + shared-weight attention block applied
-periodically. [arXiv:2411.15242; unverified]"""
+"""zamba2-7b — the JAX reference's simplified hybrid, not the published
+Zamba2-7B: a Mamba2 backbone and one shared attention+SwiGLU block (heads
+of 112, ``kv_channels``) applied after every 6 mamba layers into the
+residual stream, the gated norm over the whole row (6,672,161,504
+parameters).  The published model, two shared blocks in turn over
+``concat(x, embedding)`` with heads of 224 and per-layer adapters, is
+``zamba2_7b_instruct.py``. [arXiv:2411.15242; unverified]"""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(

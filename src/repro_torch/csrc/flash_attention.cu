@@ -9,14 +9,17 @@
 // in q's dtype; lse (B, Sq, H) fp32 (m + log l per row) is written too, for
 // the backward.  Dv differs from D only in MLA (deepseek-v2: q/k 192 = 128
 // nope + 64 rope dims, v 128), which the wgmma kernel takes as (192, 128).
-// zamba2-7b's head dim 112 (3584 / 32) runs on the tiles of D = 128.
+// Head dim 112 (the JAX reference's simplified zamba2-7b, 3584 / 32) runs on
+// the tiles of D = 128, and 224 (the published Zamba2-7B, 7168 / 32) on
+// those of D = 256.
 // Tensors are read in the JAX layout (B, S, H, D) through their strides,
 // with D contiguous: nothing is transposed.
 //
 // Two kernels compute that function; the wrapper
 // (kernels/flash_attention.py::variant_for) picks one by a fixed rule before
-// any launch: bf16 with (D, Dv) in {(64, 64), (112, 112), (128, 128), (256,
-// 256), (192, 128)} runs `flash_fwd_wgmma`, float32 and bf16 with D = Dv in
+// any launch: bf16 with (D, Dv) in {(64, 64), (112, 112), (128, 128), (224,
+// 224), (256, 256), (192, 128)} runs `flash_fwd_wgmma`, float32 and bf16
+// with D = Dv in
 // {16, 32} run `flash_fwd`.  A failed launch of either raises; nothing retries on the
 // other.
 //
@@ -62,7 +65,10 @@
 //   bytes, so the expect-tx counts stay the full tiles).  Zero columns add
 //   nothing to Q K^T and give zero columns of P V, which the epilogue does
 //   not store (they would land on the next head's output).  1/8 of the
-//   tensor-core work is on those padding columns.
+//   tensor-core work is on those padding columns.  Head dim 224 runs
+//   `flash_fwd_wgmma<256, 256, kHeads, 224>` the same way: the fourth box
+//   reads columns 192-255, TMA fills 224-255 with zeros, and the epilogue
+//   stores 224 columns (1/8 of the work on padding again).
 // - Epilogue: O / max(l, 1e-30) to bf16 stored from registers, rows past
 //   Sq and columns past the head dim skipped; lse = m + log(max(l, 1e-30)), or -1e30 for a row the mask
 //   empties wholly, as the reference's kernel gives.
@@ -374,7 +380,7 @@ __device__ __forceinline__ float tanh_acc(float u) {
 
 // One consumer warpgroup (`c` = 0 or 1) of head h, q rows [q0, q0 + 64):
 // the kv tiles [jbeg, jend) from the ring, then O and lse of its rows (the
-// first kOutCols columns of O: the real head dim, Dv but at 112).  In
+// first kOutCols columns of O: the real head dim, Dv but at 112 and 224).  In
 // the m64n64 fragment, thread t (warp w, lane l) holds rows 16w + l/4 (+8)
 // and, for register i, column 8 (i / 4) + 2 (l % 4) + (i % 2) of row half
 // (i / 2) % 2.
@@ -545,7 +551,8 @@ __device__ __forceinline__ void consume(const WParams& p,
 // kHeads q heads per block: 1 (the consumers take rows 0-63 and 64-127 of
 // one head) or 2 (two heads of one kv head, 64 rows each, sharing every K
 // and V tile).  Q's shared tile is 128 rows either way, consumer c's at row
-// 64c.  kOutCols: the output columns stored (Dv, or 112 on 128-wide tiles).
+// 64c.  kOutCols: the output columns stored (Dv, or 112 / 224 on 128- /
+// 256-wide tiles).
 template <int D, int Dv, int kHeads, int kOutCols>
 __global__ void __launch_bounds__(kWThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -636,6 +643,7 @@ static cudaError_t dispatch(const Params& p, int D, cudaStream_t stream) {
       case 64: return launch<T, 64>(p, stream);
       case 112: return launch<T, 112>(p, stream);
       case 128: return launch<T, 128>(p, stream);
+      case 224: return launch<T, 224>(p, stream);
       case 256: return launch<T, 256>(p, stream);
     }
   }
@@ -653,6 +661,7 @@ static long long simt_smem(int D) {
       case 64: return smem_bytes<T, 64>();
       case 112: return smem_bytes<T, 112>();
       case 128: return smem_bytes<T, 128>();
+      case 224: return smem_bytes<T, 224>();
       case 256: return smem_bytes<T, 256>();
     }
   }
@@ -688,7 +697,8 @@ static cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
 
 // the (D, Dv) pairs of the wgmma kernel
 static bool wgmma_pair(int D, int Dv) {
-  return (D == Dv && (D == 64 || D == 112 || D == 128 || D == 256))
+  return (D == Dv && (D == 64 || D == 112 || D == 128 || D == 224
+                      || D == 256))
       || (D == 192 && Dv == 128);
 }
 
@@ -725,7 +735,8 @@ extern "C" int k2_flash_attention(
 }
 
 // The wgmma kernel `flash_fwd_wgmma`: bf16 q/k/v with (D, Dv) in {(64, 64),
-// (112, 112), (128, 128), (256, 256), (192, 128)}; D is the head dim of q and k, Dv
+// (112, 112), (128, 128), (224, 224), (256, 256), (192, 128)}; D is the
+// head dim of q and k, Dv
 // that of v and the output.  q/k/v strides (elements) are those the TMA
 // descriptors read by: 16-byte multiples, with a 16-byte-aligned base (the
 // wrapper checks both).  Returns 0, a cudaError_t of the launch, or minus
@@ -765,6 +776,7 @@ extern "C" int k2_flash_attention_wgmma(
       : D == 112 ? k2::launch_wgmma<128, 128, 112>(tq, tk, tv, p, B, hpb, st)
       : D == 128 ? k2::launch_wgmma<128, 128>(tq, tk, tv, p, B, hpb, st)
       : D == 192 ? k2::launch_wgmma<192, 128>(tq, tk, tv, p, B, hpb, st)
+      : D == 224 ? k2::launch_wgmma<256, 256, 224>(tq, tk, tv, p, B, hpb, st)
                  : k2::launch_wgmma<256, 256>(tq, tk, tv, p, B, hpb, st);
   return (int)err;
 }
@@ -781,6 +793,7 @@ extern "C" long long k2_smem_bytes(int dtype, int D, int Dv) {
     case 64: return k2::WLayout<64, 64>::kBytes;
     case 112:   // on the tiles of 128
     case 128: return k2::WLayout<128, 128>::kBytes;
+    case 224:   // on the tiles of 256
     case 256: return k2::WLayout<256, 256>::kBytes;
   }
   return k2::simt_smem<__nv_bfloat16>(D);

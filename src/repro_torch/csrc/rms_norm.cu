@@ -17,6 +17,12 @@
 //           columns: the tail of models/ssm.py::apply_mamba2)
 //   rstd = rsqrt(mean(v^2) + eps),     out = T((v * rstd) * w)
 //
+// The gated variant may take the norm per group of n / G columns (Zamba2's
+// grouped gated norm, a group per SSM group): one rstd a row and group,
+// stored at row * G + group, and the mean over the group's columns.  G = 1
+// is the norm over the whole row: the same blocks, loops and arithmetic as
+// the kernel had before groups, so the same bits.
+//
 // Each T() is a rounding the composed ops make; the forward makes the same
 // ones, unfused (__fmul_rn / __fadd_rn), so it matches them up to the
 // order of the row's sum.  The backward works in f32 and rounds each
@@ -74,7 +80,7 @@ struct Fwd {
   void* out;       // (M, n), contiguous
   float* rstd;     // (M,)
   long long M;
-  int n, P;
+  int n, P, G;     // G: norm groups of n / G columns
   long long sx, sxs, sz;  // row strides, in elements
   float eps;
 };
@@ -94,7 +100,7 @@ struct Bwd {
   float* part_d;   // gated only, (blocks, n)
   float* col_d;    // gated only, (n,): the column sums of part_d
   long long M;
-  int n, P;
+  int n, P, G;
   long long sx, sxs, sz;
 };
 
@@ -191,38 +197,41 @@ __device__ __forceinline__ void row_values(
   }
 }
 
-// one block a row; dynamic shared memory: n floats (the row, element i of
-// vector vi at i * nv + vi) and kWarps floats
+// one block a row and group (block b: row b / G, group b % G); dynamic
+// shared memory: n floats (the group's columns, element i of its vector vi
+// at i * nv + vi - v0) and kWarps floats
 template <typename T, typename W, int V, bool kGated>
 __global__ void __launch_bounds__(kThreads) rms_fwd(Fwd p) {
   extern __shared__ float smem[];
-  const int nv = p.n / V;
+  const int ng = p.n / p.G;             // the group's columns
+  const int nv = ng / V;                // and vectors
+  const int v0 = (blockIdx.x % p.G) * nv;   // its first vector in the row
   float* red = smem + p.n;
-  const long long row = blockIdx.x;
+  const long long row = blockIdx.x / p.G;
   const T* x = static_cast<const T*>(p.x) + row * p.sx;
   const T* xs = kGated ? static_cast<const T*>(p.xs) + row * p.sxs : nullptr;
   const T* z = kGated ? static_cast<const T*>(p.z) + row * p.sz : nullptr;
   float ss = 0.0f;
-  for (int vi = threadIdx.x; vi < nv; vi += kThreads) {
+  for (int vi = v0 + threadIdx.x; vi < v0 + nv; vi += kThreads) {
     float v[V], u[V], s[V], zf[V], ez[V], xsf[V];
     row_values<T, V, kGated>(x, xs, p.D, z, vi, p.P, v, u, s, zf, ez, xsf);
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      smem[i * nv + vi] = v[i];
+      smem[i * nv + vi - v0] = v[i];
       ss = fmaf(v[i], v[i], ss);
     }
   }
   const float tot = block_sum(ss, red);
-  const float r = rsqrtf(__fadd_rn(__fmul_rn(tot, 1.0f / (float)p.n), p.eps));
-  if (threadIdx.x == 0) p.rstd[row] = r;
+  const float r = rsqrtf(__fadd_rn(__fmul_rn(tot, 1.0f / (float)ng), p.eps));
+  if (threadIdx.x == 0) p.rstd[blockIdx.x] = r;
   const W* w = static_cast<const W*>(p.w);
   T* out = static_cast<T*>(p.out) + row * p.n;
-  for (int vi = threadIdx.x; vi < nv; vi += kThreads) {
+  for (int vi = v0 + threadIdx.x; vi < v0 + nv; vi += kThreads) {
     float wf[V], o[V];
     load<W, V>(w + (long long)vi * V, wf);
 #pragma unroll
     for (int i = 0; i < V; ++i)
-      o[i] = __fmul_rn(__fmul_rn(smem[i * nv + vi], r), wf[i]);
+      o[i] = __fmul_rn(__fmul_rn(smem[i * nv + vi - v0], r), wf[i]);
     store<T, V>(out + (long long)vi * V, o);
   }
 }
@@ -244,57 +253,64 @@ __global__ void __launch_bounds__(kThreads) rms_bwd(Bwd p) {
       if constexpr (kGated) acc_d[i * nv + vi] = 0.0f;
     }
   const W* w = static_cast<const W*>(p.w);
-  const float inv_n = 1.0f / (float)p.n;
+  const int ngv = nv / p.G;             // vectors of a norm group
+  const float inv_n = 1.0f / (float)(p.n / p.G);
   for (long long row = blockIdx.x; row < p.M; row += gridDim.x) {
     const T* x = static_cast<const T*>(p.x) + row * p.sx;
     const T* xs =
         kGated ? static_cast<const T*>(p.xs) + row * p.sxs : nullptr;
     const T* z = kGated ? static_cast<const T*>(p.z) + row * p.sz : nullptr;
     const T* g = static_cast<const T*>(p.g) + row * p.n;
-    const float r = p.rstd[row];
-    float dot = 0.0f;
-    for (int vi = threadIdx.x; vi < nv; vi += kThreads) {
-      float v[V], u[V], s[V], zf[V], ez[V], xsf[V], gf[V], wf[V];
-      row_values<T, V, kGated>(x, xs, p.D, z, vi, p.P, v, u, s, zf, ez,
-                               xsf);
-      load<T, V>(g + (long long)vi * V, gf);
-      load<W, V>(w + (long long)vi * V, wf);
+    for (int grp = 0; grp < p.G; ++grp) {
+      const int v0 = grp * ngv;
+      const float r = p.rstd[row * p.G + grp];
+      float dot = 0.0f;
+      for (int vi = v0 + threadIdx.x; vi < v0 + ngv; vi += kThreads) {
+        float v[V], u[V], s[V], zf[V], ez[V], xsf[V], gf[V], wf[V];
+        row_values<T, V, kGated>(x, xs, p.D, z, vi, p.P, v, u, s, zf, ez,
+                                 xsf);
+        load<T, V>(g + (long long)vi * V, gf);
+        load<W, V>(w + (long long)vi * V, wf);
 #pragma unroll
-      for (int i = 0; i < V; ++i) dot = fmaf(gf[i] * wf[i], v[i] * r, dot);
-    }
-    const float c = block_sum(dot, red) * inv_n;
-    for (int vi = threadIdx.x; vi < nv; vi += kThreads) {
-      float v[V], u[V], s[V], zf[V], ez[V], xsf[V], gf[V], wf[V], d0[V];
-      row_values<T, V, kGated>(x, xs, p.D, z, vi, p.P, v, u, s, zf, ez,
-                               xsf);
-      load<T, V>(g + (long long)vi * V, gf);
-      load<W, V>(w + (long long)vi * V, wf);
-      const float d = kGated ? p.D[vi * V / p.P] : 0.0f;
-      float d1[V], d2[V];
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float vh = v[i] * r;
-        const float dv = r * (gf[i] * wf[i] - vh * c);
-        acc_w[i * nv + vi] += gf[i] * vh;
-        if constexpr (kGated) {
-          const float du = dv * s[i];
-          const float sig = __frcp_rn(1.0f + ez[i]);
-          d0[i] = du;
-          d1[i] = du * d;
-          d2[i] = dv * u[i] * sig * (1.0f + zf[i] * (1.0f - sig));
-          acc_d[i * nv + vi] += du * xsf[i];
-        } else {
-          d0[i] = dv;
-        }
+        for (int i = 0; i < V; ++i) dot = fmaf(gf[i] * wf[i], v[i] * r, dot);
       }
-      const long long off = row * p.n + (long long)vi * V;
-      store<T, V>(static_cast<T*>(p.dx) + off, d0);
-      if constexpr (kGated) {
-        store<T, V>(static_cast<T*>(p.dxs) + off, d1);
-        store<T, V>(static_cast<T*>(p.dz) + off, d2);
+      const float c = block_sum(dot, red) * inv_n;
+      for (int vi = v0 + threadIdx.x; vi < v0 + ngv; vi += kThreads) {
+        float v[V], u[V], s[V], zf[V], ez[V], xsf[V], gf[V], wf[V], d0[V];
+        row_values<T, V, kGated>(x, xs, p.D, z, vi, p.P, v, u, s, zf, ez,
+                                 xsf);
+        load<T, V>(g + (long long)vi * V, gf);
+        load<W, V>(w + (long long)vi * V, wf);
+        const float d = kGated ? p.D[vi * V / p.P] : 0.0f;
+        float d1[V], d2[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float vh = v[i] * r;
+          const float dv = r * (gf[i] * wf[i] - vh * c);
+          acc_w[i * nv + vi] += gf[i] * vh;
+          if constexpr (kGated) {
+            const float du = dv * s[i];
+            const float sig = __frcp_rn(1.0f + ez[i]);
+            d0[i] = du;
+            d1[i] = du * d;
+            d2[i] = dv * u[i] * sig * (1.0f + zf[i] * (1.0f - sig));
+            acc_d[i * nv + vi] += du * xsf[i];
+          } else {
+            d0[i] = dv;
+          }
+        }
+        const long long off = row * p.n + (long long)vi * V;
+        store<T, V>(static_cast<T*>(p.dx) + off, d0);
+        if constexpr (kGated) {
+          store<T, V>(static_cast<T*>(p.dxs) + off, d1);
+          store<T, V>(static_cast<T*>(p.dz) + off, d2);
+        }
       }
     }
   }
+  // with groups another thread may own a column's sums than the one that
+  // writes them out below
+  __syncthreads();
   const long long base = (long long)blockIdx.x * p.n;
   for (int vi = threadIdx.x; vi < nv; vi += kThreads)
 #pragma unroll
@@ -373,7 +389,8 @@ static cudaError_t launch_fwd(const Fwd& p, cudaStream_t st) {
   const long long smem = fwd_smem(p.n);
   cudaError_t err = allow_smem(rms_fwd<T, W, V, kGated>, smem);
   if (err != cudaSuccess) return err;
-  rms_fwd<T, W, V, kGated><<<(unsigned)p.M, kThreads, smem, st>>>(p);
+  rms_fwd<T, W, V, kGated><<<(unsigned)(p.M * p.G), kThreads, smem, st>>>(
+      p);
   return cudaGetLastError();
 }
 
@@ -442,11 +459,13 @@ static cudaError_t dispatch_bwd(const Bwd& p, void* dw, float* dD, int H,
   return cudaErrorInvalidValue;
 }
 
-static bool bad_shape(long long M, int n, int H, int gated, int vec,
+static bool bad_shape(long long M, int n, int H, int G, int gated, int vec,
                       int t) {
   const int full = t == 1 ? 8 : 4;
   return M <= 0 || n <= 0 || (gated && (H <= 0 || n % H != 0
                                         || (n / H) % vec != 0))
+      || G < 1 || (G > 1 && !gated) || n % G != 0 || (n / G) % vec != 0
+      || M * G >= (1LL << 31)
       || !(vec == 1 || vec == full) || n % vec != 0;
 }
 
@@ -457,19 +476,20 @@ static bool bad_shape(long long M, int n, int H, int gated, int vec,
 // (M, n) contiguous; rstd (M,) f32.  Row strides in elements.  t_dtype /
 // w_dtype: 0 float32, 1 bfloat16.  vec: 1, or 8 (bf16) / 4 (f32) when
 // every row start is 16-byte aligned (and, gated, the vector divides
-// P = n / H).  H: heads of D (gated).  Returns
+// P = n / H).  H: heads of D (gated).  G: norm groups of n / G columns
+// (gated; 1 for the plain variant), rstd (M, G).  Returns
 // cudaGetLastError() of the launch (0 on success).
 extern "C" int k4_rms_fwd(
     const void* x, const void* xs, const float* D, const void* z,
-    const void* w, void* out, float* rstd, long long M, int n, int H,
+    const void* w, void* out, float* rstd, long long M, int n, int H, int G,
     long long sx, long long sxs, long long sz, float eps, int t_dtype,
     int w_dtype, int vec, int gated, void* stream) {
-  if (k4::bad_shape(M, n, H, gated, vec, t_dtype)
+  if (k4::bad_shape(M, n, H, G, gated, vec, t_dtype)
       || k4::fwd_smem(n) > k4::kMaxSmem)
     return (int)cudaErrorInvalidValue;
   k4::Fwd p;
   p.x = x; p.xs = xs; p.D = D; p.z = z; p.w = w; p.out = out;
-  p.rstd = rstd; p.M = M; p.n = n; p.P = gated ? n / H : n;
+  p.rstd = rstd; p.M = M; p.n = n; p.P = gated ? n / H : n; p.G = G;
   p.sx = sx; p.sxs = sxs; p.sz = sz; p.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(gated ? k4::dispatch_fwd<true>(p, t_dtype, w_dtype, vec, st)
@@ -478,16 +498,16 @@ extern "C" int k4_rms_fwd(
 }
 
 // The backward.  g (M, n) contiguous; x, xs, D, z, w as in the forward;
-// rstd the forward's.  dx (the gated variant's dy), dxs, dz: (M, n)
+// rstd the forward's (M, G).  dx (the gated variant's dy), dxs, dz: (M, n)
 // contiguous in T; dw (n,) in W's type; dD (H,) f32; part: f32 scratch of
 // k4_scratch_floats(M, n, gated) floats.
 extern "C" int k4_rms_bwd(
     const void* g, const void* x, const void* xs, const float* D,
     const void* z, const void* w, const float* rstd, void* dx, void* dxs,
     void* dz, void* dw, float* dD, float* part, long long M, int n, int H,
-    long long sx, long long sxs, long long sz, int t_dtype, int w_dtype,
-    int vec, int gated, void* stream) {
-  if (k4::bad_shape(M, n, H, gated, vec, t_dtype)
+    int G, long long sx, long long sxs, long long sz, int t_dtype,
+    int w_dtype, int vec, int gated, void* stream) {
+  if (k4::bad_shape(M, n, H, G, gated, vec, t_dtype)
       || k4::bwd_smem(n, gated) > k4::kMaxSmem)
     return (int)cudaErrorInvalidValue;
   k4::Bwd p;
@@ -495,7 +515,7 @@ extern "C" int k4_rms_bwd(
   p.dx = dx; p.dxs = dxs; p.dz = dz; p.part_w = part;
   p.part_d = part + (long long)k4::backward_blocks(M, n) * n;
   p.col_d = p.part_d + (long long)k4::backward_blocks(M, n) * n;
-  p.M = M; p.n = n; p.P = gated ? n / H : n;
+  p.M = M; p.n = n; p.P = gated ? n / H : n; p.G = G;
   p.sx = sx; p.sxs = sxs; p.sz = sz;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(gated

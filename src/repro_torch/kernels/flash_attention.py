@@ -18,10 +18,13 @@ storage never reaches it.
 Which kernel runs is one fixed rule, ``variant_for(dtype, D, Dv)``, decided
 before any launch:
 
-* bfloat16 with D = Dv in (64, 112, 128, 256), every head dim of the
-  repo's GQA models (112: zamba2-7b's shared attention block, run on the
-  tiles of 128 with TMA filling columns 112-127 with zeros and the
-  epilogue storing 112), and (D, Dv) = (192, 128), deepseek-v2's MLA after
+* bfloat16 with D = Dv in (64, 112, 128, 224, 256), every head dim of the
+  repo's GQA models (112: the shared attention block of the JAX
+  reference's simplified zamba2-7b, run on the tiles of 128 with TMA
+  filling columns 112-127 with zeros and the epilogue storing 112; 224:
+  the published Zamba2-7B's, ``zamba2-7b-instruct``, likewise on the tiles
+  of 256, columns 224-255 zero-filled and 224 stored), and (D, Dv) = (192,
+  128), deepseek-v2's MLA after
   its per-head K and V are materialized (128 nope + 64 rope dims for q and
   k, 128 for v), runs ``"wgmma"``: tensor-core tiles (``wgmma``) fed by TMA
   loads, a
@@ -40,7 +43,7 @@ Any other (dtype, D, Dv) raises ``ValueError`` naming it, f32 at (192, 128)
 included (no path on the card runs MLA in f32).  A failed launch of either
 variant raises; nothing retries on the other or on the plain version.
 ``launches`` counts every launch and ``launches_by_variant`` each
-variant's.
+variant's, and ``launches_by_head_dim`` each head dim's (D).
 
 The kernels replace the JAX reference's Pallas TPU kernel
 ``repro/kernels/flash_attention.py::_kernel``.  The bound on an H100 is
@@ -69,10 +72,10 @@ SOURCE = _build.CSRC / "flash_attention.cu"
 NEG_INF = -1.0e30
 
 #: head dims the kernels are instantiated for
-HEAD_DIMS = (16, 32, 64, 112, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 224, 256)
 #: bf16 head dims of the wgmma variant (``flash_fwd_wgmma`` in the source;
-#: 112 on the tiles of 128)
-WGMMA_HEAD_DIMS = (64, 112, 128, 256)
+#: 112 on the tiles of 128, 224 on those of 256)
+WGMMA_HEAD_DIMS = (64, 112, 128, 224, 256)
 #: the one (D, Dv) pair with D != Dv, bf16 on the wgmma variant: MLA's
 #: materialized attention (deepseek-v2: 128 nope + 64 rope, v 128)
 MLA_HEAD_DIMS = (192, 128)
@@ -225,9 +228,10 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
 
 
 class FlashAttention:
-    """The K2 wrapper.  ``launches`` counts kernel launches and
-    ``launches_by_variant`` those of each variant (plain integers, never
-    incremented on the CPU path)."""
+    """The K2 wrapper.  ``launches`` counts kernel launches,
+    ``launches_by_variant`` those of each variant and
+    ``launches_by_head_dim`` those of each head dim D (plain integers,
+    never incremented on the CPU path)."""
 
     def __init__(self):
         self.reset_counts()
@@ -236,6 +240,8 @@ class FlashAttention:
     def reset_counts(self) -> None:
         self.launches = 0
         self.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+        self.launches_by_head_dim = dict.fromkeys(
+            sorted(HEAD_DIMS + MLA_HEAD_DIMS[:1]), 0)
 
     def library(self) -> ctypes.CDLL:
         """Build (at first use) and load the kernel's shared library."""
@@ -311,6 +317,7 @@ class FlashAttention:
                                f"{code} ({msg})")
         self.launches += 1
         self.launches_by_variant[variant] += 1
+        self.launches_by_head_dim[D] += 1
         return out, lse
 
 

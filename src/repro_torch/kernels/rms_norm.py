@@ -11,9 +11,15 @@ Two variants of one kernel (``csrc/rms_norm.cu``):
 
       u = T(y + xs D),  v = T(u * T(silu(z))),  out = rms_norm(v, scale)
 
+  with ``groups`` > 1 the norm is taken per group of ``H P / groups``
+  columns (Zamba2's ``Zamba2RMSNormGated``, a group per SSM group): one
+  rstd a row and group, ``rstd (..., groups)``; ``groups`` = 1 is the
+  norm over the whole row, ``rstd (...)``, the same kernel and bits as
+  before groups existed.
+
 Each is a ``torch.autograd.Function`` that saves only what it was given
 (the plain one x and the scale; the gated one y, xs, D, z and the scale)
-and one f32 rstd a row, where the composed ops keep f32 copies of every
+and one f32 rstd a row (and group), where the composed ops keep f32 copies of every
 row (the f32 input and ``x * rstd``, and ``silu``'s input).  The backward
 is a kernel too: it recomputes the row from the saved inputs and returns
 every gradient in f32 arithmetic, rounded once; its column sums (the
@@ -124,26 +130,41 @@ def gate(y: Tensor, xs: Tensor, D: Tensor, z: Tensor
     return (y + xs.float() * D[:, None]).to(z.dtype), F.silu(z)
 
 
+def _grouped(t: Tensor, groups: int, reshape=torch.reshape) -> Tensor:
+    """``t (..., n)`` as ``(..., groups, n / groups)``."""
+    return reshape(t, (*t.shape[:-1], groups, t.shape[-1] // groups))
+
+
 def gated_rms_norm_reference(y: Tensor, xs: Tensor, D: Tensor, z: Tensor,
-                             scale: Tensor, eps: float
-                             ) -> Tuple[Tensor, Tensor]:
+                             scale: Tensor, eps: float, groups: int = 1,
+                             reshape=torch.reshape) -> Tuple[Tensor, Tensor]:
     """Plain version of the gated forward: ``gate``, then the RMS norm of
-    ``u * silu(z)``.  Returns (out in y's type, z's shape; rstd
-    ``z.shape[:-1]``)."""
+    ``u * silu(z)``, per group of columns with ``groups`` > 1; what
+    ``models.ssm.gated_norm`` runs for every tensor K4 does not take (with
+    ``reshape`` the one a mesh's DTensors need).  Returns (out in y's type,
+    z's shape; rstd ``z.shape[:-1]``, or with groups ``z.shape[:-1] +
+    (groups,)``)."""
     u, s = gate(y, xs, D, z)
-    return rms_norm_reference(u.reshape(z.shape) * s, scale, eps)
+    v = reshape(u, tuple(z.shape)) * s
+    if groups == 1:
+        return rms_norm_reference(v, scale, eps)
+    out, r = rms_norm_reference(_grouped(v, groups, reshape),
+                                _grouped(scale, groups, reshape), eps)
+    return reshape(out, tuple(z.shape)), r
 
 
 def _norm_backward(g: Tensor, v: Tensor, scale: Tensor, rstd: Tensor
                    ) -> Tuple[Tensor, Tensor]:
-    """(dv, dscale) of ``out = v rstd scale`` in v's (compute) type."""
-    n = v.shape[-1]
+    """(dv, dscale) of ``out = v rstd scale`` in v's (compute) type; the
+    norm is over v's last dim, which the scale's last dim matches (a
+    grouped norm passes ``(..., groups, n / groups)`` and its scale as
+    ``(groups, n / groups)``)."""
     r = rstd.to(v.dtype)[..., None]
     vh = v * r
     gw = g * scale.to(v.dtype)
     c = (gw * vh).mean(dim=-1, keepdim=True)
     dv = r * (gw - vh * c)
-    return dv, (g * vh).reshape(-1, n).sum(0)
+    return dv, (g * vh).reshape(-1, *scale.shape).sum(0)
 
 
 def rms_norm_backward_reference(g: Tensor, x: Tensor, scale: Tensor,
@@ -158,7 +179,8 @@ def rms_norm_backward_reference(g: Tensor, x: Tensor, scale: Tensor,
 
 def gated_rms_norm_backward_reference(g: Tensor, y: Tensor, xs: Tensor,
                                       D: Tensor, z: Tensor, scale: Tensor,
-                                      rstd: Tensor) -> List[Tensor]:
+                                      rstd: Tensor, groups: int = 1
+                                      ) -> List[Tensor]:
     """Plain version of the gated backward: [dy, dxs, dD, dz, dscale], dy
     and dxs in y's shape and type, dz in z's, dD in D's type and dscale
     in the scale's; f32 arithmetic (f64 for f64) on the forward's rounded
@@ -168,7 +190,13 @@ def gated_rms_norm_backward_reference(g: Tensor, y: Tensor, xs: Tensor,
     u = u.reshape(z.shape)
     v = (u * s).to(ct)
     u, s, zf = u.to(ct), s.to(ct), z.to(ct)
-    dv, dw = _norm_backward(g.to(ct), v, scale, rstd)
+    if groups == 1:
+        dv, dw = _norm_backward(g.to(ct), v, scale, rstd)
+    else:
+        dv, dw = _norm_backward(_grouped(g.to(ct), groups),
+                                _grouped(v, groups), _grouped(scale, groups),
+                                rstd)
+        dv, dw = dv.reshape(z.shape), dw.reshape(scale.shape)
     du = dv * s
     sig = torch.sigmoid(zf)
     dz = dv * u * sig * (1 + zf * (1 - sig))
@@ -208,12 +236,16 @@ def row_stride(t: Tensor, row_dims: int = 1) -> int:
 
 
 def norm_shapes(x: Tensor, scale: Tensor, xs: Optional[Tensor],
-                D: Optional[Tensor], z: Optional[Tensor]
+                D: Optional[Tensor], z: Optional[Tensor], groups: int = 1
                 ) -> Tuple[Tuple[int, ...], int, int]:
     """(the output's shape, n, H) of a call (H 0 for the plain variant);
-    raises ``ValueError`` unless the operands form one."""
+    raises ``ValueError`` unless the operands form one (``groups`` > 1
+    only in the gated variant, dividing n)."""
     if (xs is None) != (D is None) or (xs is None) != (z is None):
         raise ValueError("K4's gated variant takes xs, D and z together")
+    if groups < 1 or (groups > 1 and xs is None):
+        raise ValueError(f"K4 takes groups >= 1, and > 1 only in the gated "
+                         f"variant; got {groups}")
     if xs is None:
         n = x.shape[-1]
         if x.dim() < 1 or scale.shape != (n,):
@@ -231,17 +263,26 @@ def norm_shapes(x: Tensor, scale: Tensor, xs: Optional[Tensor],
         raise ValueError(f"shapes y {tuple(x.shape)}, xs {tuple(xs.shape)}, "
                          f"D {tuple(D.shape)}, z {tuple(z.shape)}, scale "
                          f"{tuple(scale.shape)} do not form a gated norm")
+    if n % groups:
+        raise ValueError(f"K4 takes groups that divide the row: {groups} "
+                         f"groups of {n} columns")
     return tuple(z.shape), n, H
 
 
-def card_checks(x, scale, xs, D, z, backward: bool
+def rstd_shape(shape: Tuple[int, ...], groups: int) -> Tuple[int, ...]:
+    """The rstd of a call whose output has ``shape``: one a row, or one a
+    row and group."""
+    return tuple(shape[:-1]) + ((groups,) if groups > 1 else ())
+
+
+def card_checks(x, scale, xs, D, z, backward: bool, groups: int = 1
                 ) -> Tuple[Tuple[int, ...], int, int, Tuple[int, int, int]]:
     """What a launch on the card checks before it reads any data: one CUDA
     device, the types K4 takes, rows with one stride each, a contiguous
     scale and D, and a width its shared memory holds.  Returns (the
     output's shape, n, H, the row strides); raises ``ValueError`` or
     ``TypeError``."""
-    shape, n, H = norm_shapes(x, scale, xs, D, z)
+    shape, n, H = norm_shapes(x, scale, xs, D, z, groups)
     acts = [t for t in (x, xs, z) if t is not None]
     others = [t for t in (scale, D) if t is not None]
     if x.device.type != "cuda" or any(t.device != x.device
@@ -277,13 +318,15 @@ def row_strides(x: Tensor, xs: Optional[Tensor], z: Optional[Tensor]
 
 
 def _vec(tensors: Sequence[Tensor], strides: Sequence[int],
-         dtype: torch.dtype, group: int) -> int:
+         dtype: torch.dtype, *widths: int) -> int:
     """The kernel's vector: 16 bytes of the activation type when every
-    row start is 16-byte aligned and the vector divides ``group`` (the
-    gated variant's head, n for the plain one), else one element."""
+    row start is 16-byte aligned and the vector divides each of ``widths``
+    (the gated variant's head and norm group, n for the plain one), else
+    one element."""
     v = VECTOR_BYTES * 8 // torch.finfo(dtype).bits
-    aligned = group % v == 0 and all(s % v == 0 for s in strides) and all(
-        t.data_ptr() % VECTOR_BYTES == 0 for t in tensors)
+    aligned = all(w % v == 0 for w in widths) \
+        and all(s % v == 0 for s in strides) and all(
+            t.data_ptr() % VECTOR_BYTES == 0 for t in tensors)
     return v if aligned else 1
 
 
@@ -324,11 +367,11 @@ class RMSNorm:
             lib = ctypes.CDLL(str(build()))
             ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
             lib.k4_rms_fwd.argtypes = (
-                [p] * 7 + [ll, i, i, ll, ll, ll, ctypes.c_float]
+                [p] * 7 + [ll, i, i, i, ll, ll, ll, ctypes.c_float]
                 + [i] * 4 + [p])
             lib.k4_rms_fwd.restype = i
             lib.k4_rms_bwd.argtypes = (
-                [p] * 13 + [ll, i, i, ll, ll, ll] + [i] * 4 + [p])
+                [p] * 13 + [ll, i, i, i, ll, ll, ll] + [i] * 4 + [p])
             lib.k4_rms_bwd.restype = i
             lib.k4_scratch_floats.argtypes = [ll, i, i]
             lib.k4_scratch_floats.restype = ll
@@ -341,26 +384,27 @@ class RMSNorm:
         return _RMSNorm.apply(x, scale, eps)
 
     def gated(self, y: Tensor, xs: Tensor, D: Tensor, z: Tensor,
-              scale: Tensor, eps: float) -> Tensor:
-        return _GatedRMSNorm.apply(y, xs, D, z, scale, eps)
+              scale: Tensor, eps: float, groups: int = 1) -> Tensor:
+        return _GatedRMSNorm.apply(y, xs, D, z, scale, eps, groups)
 
-    def forward(self, x, scale, eps: float, xs=None, D=None, z=None
-                ) -> Tuple[Tensor, Tensor]:
+    def forward(self, x, scale, eps: float, xs=None, D=None, z=None,
+                groups: int = 1) -> Tuple[Tensor, Tensor]:
         """(out, rstd): the kernel on CUDA tensors, the plain version on CPU
         ones, through the custom op ``repro_torch::rms_norm_fwd`` wherever
         the dispatcher has a reader (``unwatched``)."""
         if unwatched((x, scale, xs, D, z)):
-            return self._forward(x, scale, eps, xs, D, z)
-        return torch.ops.repro_torch.rms_norm_fwd(x, scale, eps, xs, D, z)
+            return self._forward(x, scale, eps, xs, D, z, groups)
+        return torch.ops.repro_torch.rms_norm_fwd(x, scale, eps, xs, D, z,
+                                                  groups)
 
-    def backward(self, g, x, scale, rstd, xs=None, D=None, z=None
-                 ) -> List[Tensor]:
+    def backward(self, g, x, scale, rstd, xs=None, D=None, z=None,
+                 groups: int = 1) -> List[Tensor]:
         """[dx, dscale], or gated [dy, dxs, dD, dz, dscale]
         (``repro_torch::rms_norm_bwd``, likewise)."""
         if unwatched((g, x, scale, rstd, xs, D, z)):
-            return self._backward(g, x, scale, rstd, xs, D, z)
+            return self._backward(g, x, scale, rstd, xs, D, z, groups)
         return torch.ops.repro_torch.rms_norm_bwd(g, x, scale, rstd, xs, D,
-                                                  z)
+                                                  z, groups)
 
     def _check(self, code: int, direction: str, variant: str, x) -> None:
         if code != 0:
@@ -372,61 +416,66 @@ class RMSNorm:
         self.launches_by_variant[variant] += 1
         self.launches_by_direction[direction] += 1
 
-    def checked(self, x, scale, xs, D, z, backward: bool):
+    def checked(self, x, scale, xs, D, z, backward: bool, groups: int = 1):
         """``card_checks`` of the operands, made once a layout (their
-        shapes, strides, types and devices)."""
-        key = (backward,) + tuple(None if t is None else (
+        shapes, strides, types and devices, and the groups)."""
+        key = (backward, groups) + tuple(None if t is None else (
             t.shape, t.stride(), t.dtype, t.device)
             for t in (x, scale, xs, D, z))
         hit = self._layouts.get(key)
         if hit is None:
-            hit = card_checks(x, scale, xs, D, z, backward)
+            hit = card_checks(x, scale, xs, D, z, backward, groups)
             if len(self._layouts) >= MAX_LAYOUTS:
                 self._layouts.clear()
             self._layouts[key] = hit
         return hit
 
-    def _forward(self, x, scale, eps, xs, D, z) -> Tuple[Tensor, Tensor]:
+    def _forward(self, x, scale, eps, xs, D, z, groups: int = 1
+                 ) -> Tuple[Tensor, Tensor]:
         """The forward op on tensors with storage."""
         if x.device.type == "cpu":
-            norm_shapes(x, scale, xs, D, z)
+            norm_shapes(x, scale, xs, D, z, groups)
             if xs is None:
                 return rms_norm_reference(x, scale, eps)
-            return gated_rms_norm_reference(x, xs, D, z, scale, eps)
+            return gated_rms_norm_reference(x, xs, D, z, scale, eps, groups)
         shape, n, H, (sx, sxs, sz) = self.checked(x, scale, xs, D, z,
-                                                  backward=False)
+                                                  backward=False,
+                                                  groups=groups)
         gated = xs is not None
         acts = (x, xs, z) if gated else (x,)
         vec = _vec(acts + (scale,), (sx, sxs, sz), x.dtype,
-                   n // H if H else n)
+                   *((n // H, n // groups) if H else (n,)))
         out = torch.empty(shape, dtype=x.dtype, device=x.device)
-        rstd = torch.empty(shape[:-1], dtype=torch.float32, device=x.device)
+        rstd = torch.empty(rstd_shape(shape, groups), dtype=torch.float32,
+                           device=x.device)
         lib = self.library()
         with _on(x.device):
             code = lib.k4_rms_fwd(
                 x.data_ptr(), _ptr(xs), _ptr(D), _ptr(z), scale.data_ptr(),
                 out.data_ptr(), rstd.data_ptr(), out.numel() // n, n, H,
-                sx, sxs, sz, eps, DTYPE_CODES[x.dtype],
+                groups, sx, sxs, sz, eps, DTYPE_CODES[x.dtype],
                 DTYPE_CODES[scale.dtype], vec, int(gated),
                 torch.cuda.current_stream().cuda_stream)
         self._check(code, "forward", VARIANTS[gated], x)
         return out, rstd
 
-    def _backward(self, g, x, scale, rstd, xs, D, z) -> List[Tensor]:
+    def _backward(self, g, x, scale, rstd, xs, D, z, groups: int = 1
+                  ) -> List[Tensor]:
         """The backward op on tensors with storage."""
         if x.device.type == "cpu":
             if xs is None:
                 return list(rms_norm_backward_reference(g, x, scale, rstd))
             return gated_rms_norm_backward_reference(g, x, xs, D, z, scale,
-                                                     rstd)
+                                                     rstd, groups)
         shape, n, H, (sx, sxs, sz) = self.checked(x, scale, xs, D, z,
-                                                  backward=True)
-        backward_checks(g, rstd, shape, x.device)
+                                                  backward=True,
+                                                  groups=groups)
+        backward_checks(g, rstd, shape, x.device, groups)
         g = g.contiguous()
         gated = xs is not None
         acts = (x, xs, z) if gated else (x,)
         vec = _vec(acts + (scale, g), (sx, sxs, sz), x.dtype,
-                   n // H if H else n)
+                   *((n // H, n // groups) if H else (n,)))
         rows = g.numel() // n
         dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
         dscale = torch.empty_like(scale, memory_format=torch.contiguous_format)
@@ -444,7 +493,7 @@ class RMSNorm:
                 dxs.data_ptr() if gated else None,
                 dz.data_ptr() if gated else None, dscale.data_ptr(),
                 dD.data_ptr() if gated else None, part.data_ptr(), rows, n,
-                H, sx, sxs, sz, DTYPE_CODES[x.dtype],
+                H, groups, sx, sxs, sz, DTYPE_CODES[x.dtype],
                 DTYPE_CODES[scale.dtype], vec, int(gated),
                 torch.cuda.current_stream().cuda_stream)
         self._check(code, "backward", VARIANTS[gated], x)
@@ -478,13 +527,14 @@ def _ptr(t: Optional[Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def backward_checks(g: Tensor, rstd: Tensor, shape, device) -> None:
+def backward_checks(g: Tensor, rstd: Tensor, shape, device,
+                    groups: int = 1) -> None:
     """The backward's own operands: the output's gradient and the
     forward's rstd, on the device, of the shapes the forward gave."""
-    if tuple(g.shape) != tuple(shape) or tuple(rstd.shape) != \
-            tuple(shape[:-1]):
+    want = rstd_shape(shape, groups)
+    if tuple(g.shape) != tuple(shape) or tuple(rstd.shape) != want:
         raise ValueError(f"K4's backward takes g {tuple(shape)} and rstd "
-                         f"{tuple(shape[:-1])}, got {tuple(g.shape)}, "
+                         f"{want}, got {tuple(g.shape)}, "
                          f"{tuple(rstd.shape)}")
     if g.device != device or rstd.device != device:
         raise ValueError("K4's backward runs on the forward's device")
@@ -495,37 +545,39 @@ def backward_checks(g: Tensor, rstd: Tensor, shape, device) -> None:
 @torch.library.custom_op("repro_torch::rms_norm_fwd", mutates_args=())
 def _rms_norm_fwd(x: Tensor, scale: Tensor, eps: float,
                   xs: Optional[Tensor], D: Optional[Tensor],
-                  z: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
-    return rms_norm._forward(x, scale, eps, xs, D, z)
+                  z: Optional[Tensor], groups: int = 1
+                  ) -> Tuple[Tensor, Tensor]:
+    return rms_norm._forward(x, scale, eps, xs, D, z, groups)
 
 
 @_rms_norm_fwd.register_fake
-def _rms_norm_fwd_fake(x, scale, eps, xs, D, z):
+def _rms_norm_fwd_fake(x, scale, eps, xs, D, z, groups=1):
     """The forward on tensors with no storage (a dry run's): out and rstd
     of the real call's shapes, types and device, after the checks a call on
     the same device makes before it reads data."""
-    shape = norm_shapes(x, scale, xs, D, z)[0]
+    shape = norm_shapes(x, scale, xs, D, z, groups)[0]
     if x.device.type != "cpu":
-        card_checks(x, scale, xs, D, z, backward=False)
+        card_checks(x, scale, xs, D, z, backward=False, groups=groups)
     rt = torch.float32 if x.device.type != "cpu" else _ct(x.dtype)
-    return (x.new_empty(shape), x.new_empty(shape[:-1], dtype=rt))
+    return (x.new_empty(shape),
+            x.new_empty(rstd_shape(shape, groups), dtype=rt))
 
 
 @torch.library.custom_op("repro_torch::rms_norm_bwd", mutates_args=())
 def _rms_norm_bwd(g: Tensor, x: Tensor, scale: Tensor, rstd: Tensor,
                   xs: Optional[Tensor], D: Optional[Tensor],
-                  z: Optional[Tensor]) -> List[Tensor]:
-    return rms_norm._backward(g, x, scale, rstd, xs, D, z)
+                  z: Optional[Tensor], groups: int = 1) -> List[Tensor]:
+    return rms_norm._backward(g, x, scale, rstd, xs, D, z, groups)
 
 
 @_rms_norm_bwd.register_fake
-def _rms_norm_bwd_fake(g, x, scale, rstd, xs, D, z):
+def _rms_norm_bwd_fake(g, x, scale, rstd, xs, D, z, groups=1):
     """The backward on tensors with no storage: the gradients' shapes,
     types and device, after the checks a call on the same device makes."""
-    shape = norm_shapes(x, scale, xs, D, z)[0]
+    shape = norm_shapes(x, scale, xs, D, z, groups)[0]
     if x.device.type != "cpu":
-        card_checks(x, scale, xs, D, z, backward=True)
-        backward_checks(g, rstd, shape, x.device)
+        card_checks(x, scale, xs, D, z, backward=True, groups=groups)
+        backward_checks(g, rstd, shape, x.device, groups)
     grads = [x.new_empty(x.shape)]
     if xs is not None:
         grads += [x.new_empty(xs.shape), D.new_empty(D.shape),
@@ -551,16 +603,17 @@ class _RMSNorm(torch.autograd.Function):
 class _GatedRMSNorm(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, y, xs, D, z, scale, eps: float):
-        out, rstd = rms_norm.forward(y, scale, eps, xs, D, z)
+    def forward(ctx, y, xs, D, z, scale, eps: float, groups: int = 1):
+        out, rstd = rms_norm.forward(y, scale, eps, xs, D, z, groups)
         ctx.save_for_backward(y, xs, D, z, scale, rstd)
+        ctx.groups = groups
         return out
 
     @staticmethod
     def backward(ctx, g):
         y, xs, D, z, scale, rstd = ctx.saved_tensors
-        grads = rms_norm.backward(g, y, scale, rstd, xs, D, z)
-        return (*grads, None)
+        grads = rms_norm.backward(g, y, scale, rstd, xs, D, z, ctx.groups)
+        return (*grads, None, None)
 
 
 rms_norm = RMSNorm()

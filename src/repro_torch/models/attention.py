@@ -29,12 +29,16 @@ Tensor = torch.Tensor
 # Parameter init
 # ---------------------------------------------------------------------------
 
-def init_gqa(gen, cfg, dtype=torch.float32, device=None):
+def init_gqa(gen, cfg, dtype=torch.float32, device=None, d_in=None):
+    """GQA's projections; q, k and v read ``d_in`` columns (``d_model``
+    when None: Zamba2's shared block reads ``concat(x, embedding)``), the
+    output projection writes ``d_model``."""
     d, H, KV, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    di = d if d_in is None else d_in
     p = {
-        "wq": L.dense_init(gen, (d, H, D), dtype, device=device),
-        "wk": L.dense_init(gen, (d, KV, D), dtype, device=device),
-        "wv": L.dense_init(gen, (d, KV, D), dtype, device=device),
+        "wq": L.dense_init(gen, (di, H, D), dtype, device=device),
+        "wk": L.dense_init(gen, (di, KV, D), dtype, device=device),
+        "wv": L.dense_init(gen, (di, KV, D), dtype, device=device),
         "wo": L.dense_init(gen, (H, D, d), dtype, device=device),
     }
     if cfg.qkv_bias:

@@ -156,27 +156,44 @@ def reshape(t: Tensor, shape) -> Tensor:
     return t.reshape(shape)
 
 
-def gelu(x: Tensor) -> Tensor:
-    """``jax.nn.gelu``'s default: the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
+def gelu(x: Tensor, exact: bool = False) -> Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation, or with
+    ``exact`` the erf form (``transformers``' ``"gelu"``)."""
+    return F.gelu(x, approximate="none" if exact else "tanh")
 
 
-def apply_mlp(p, x: Tensor, kind: str) -> Tensor:
+def init_adapter(gen, d: int, rank: int, ff: int, dtype=torch.float32,
+                 device=None):
+    """A rank-``rank`` adapter of a gated MLP's ``gate_up``: ``a (d, rank)``
+    and ``b (rank, 2, ff)``, added as ``(x a) b`` (Zamba2's per-layer
+    ``gate_up_proj_adapter``)."""
+    return {"a": dense_init(gen, (d, rank), dtype, device=device),
+            "b": dense_init(gen, (rank, 2 * ff), dtype,
+                            device=device).reshape(rank, 2, ff)}
+
+
+def apply_mlp(p, x: Tensor, kind: str, exact_gelu: bool = False,
+              adapter=None) -> Tensor:
+    """The MLP; a gated one adds ``adapter``'s ``(x a) b`` to its
+    ``gate_up`` product (``init_adapter``)."""
     wi = p["wi"]
     if kind in ("swiglu", "geglu"):
         d, _, ff = wi.shape
         h = x @ reshape(wi, (d, 2 * ff))
+        if adapter is not None:
+            h = h + (x @ adapter["a"]) @ reshape(adapter["b"],
+                                                 (-1, 2 * ff))
         h = reshape(h, h.shape[:-1] + (2, ff))
         if "bi" in p:
             h = h + p["bi"]
         gate, up = h[..., 0, :], h[..., 1, :]
-        act = F.silu(gate) if kind == "swiglu" else gelu(gate)
+        act = F.silu(gate) if kind == "swiglu" else gelu(gate, exact_gelu)
         h = act * up
     else:
         h = x @ wi
         if "bi" in p:
             h = h + p["bi"]
-        h = gelu(h)
+        h = gelu(h, exact_gelu)
     y = h @ p["wo"]
     if "bo" in p:
         y = y + p["bo"]

@@ -193,22 +193,23 @@ def apply_mamba2(p, x: Tensor, cfg, impl=ssd_k3, dist=None) -> Tensor:
         y = _scan_region(impl, dist, cfg.ssm_chunk)(xs, dt, A, Bm, Cm)
     else:
         y, _ = impl(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
-    y = gated_norm(y, xs, p["D"], z, p["gate_norm"], cfg.norm_eps)
+    y = gated_norm(y, xs, p["D"], z, p["gate_norm"], cfg.norm_eps,
+                   cfg.ssm_groups if cfg.ssm_grouped_norm else 1)
     return y @ p["out_proj"]
 
 
 def gated_norm(y: Tensor, xs: Tensor, D: Tensor, z: Tensor, scale: Tensor,
-               eps: float) -> Tensor:
+               eps: float, groups: int = 1) -> Tensor:
     """``apply_mamba2``'s tail from the scan's output y and xs ``(B, S, H,
     P)`` to ``out_proj``'s input: the skip through D, the gate silu(z) and
-    the RMS norm, in z's shape ``(B, S, H P)``.  K4's gated variant on a
-    tensor K4 takes (``K4.takes``), its composed ops (``K4.gate``, then
-    ``apply_norm``) on any other."""
+    the RMS norm, in z's shape ``(B, S, H P)``, over the whole row or, with
+    ``groups`` > 1, per group of ``H P / groups`` columns (Zamba2's).  K4's
+    gated variant on a tensor K4 takes (``K4.takes``), its plain version
+    (``K4.gated_rms_norm_reference``, as composed ops) on any other."""
     if K4.takes(y):
-        return K4.rms_norm.gated(y, xs, D, z, scale, eps)
-    u, s = K4.gate(y, xs, D, z)
-    return L.apply_norm({"scale": scale}, L.reshape(u, z.shape) * s, "rms",
-                        eps)
+        return K4.rms_norm.gated(y, xs, D, z, scale, eps, groups)
+    return K4.gated_rms_norm_reference(y, xs, D, z, scale, eps, groups,
+                                       L.reshape)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -21,10 +21,23 @@ of each group of ``k = shared_attn_every`` and never after the tail; one set
 of tensors, so autograd sums its gradient over the applications, as the
 reference's scan does.
 
+The published Zamba2 layout (``cfg.published_hybrid``: ``hybrid_layer_ids``
+set, as in ``configs/zamba2_7b_instruct.py``) is ``num_layers`` mamba2
+layers in ``params["blocks"]`` and ``num_mem_blocks`` shared attention+MLP
+blocks in ``params["shared"]``.  Hybrid layer ``i``, the ``j``-th of
+``cfg.hybrid_ids``, also holds its own adapter (``"adapter"``, added to the
+shared MLP's ``gate_up``) and output linear (``"linear"``), and applies
+shared block ``j % num_mem_blocks`` (``apply_hybrid_layer``): the block
+reads ``rms(concat(x, e))`` with e the token embedding, and its output
+enters the layer's normed input only, ``x + mamba(rms(x + m W_l))``.  Each
+application is the span ``hybrid.shared_block``.  Training only: decode,
+the cache and ``dist`` raise ``NotImplementedError`` on this layout.
+
 ``remat`` (``"none"``, ``"full"``, ``"dots"``) runs the bodies the
 reference wraps in ``jax.checkpoint`` under
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: a layer, a
-pair (gemma2's local/global, llama4's (dense, MoE)) or a hybrid group.
+pair (gemma2's local/global, llama4's (dense, MoE)), a hybrid group or a
+published hybrid layer (its shared block and its mamba layer).
 ``"full"`` saves nothing inside the body; ``"dots"`` saves the outputs of
 the matrix products without batch dims (``aten.mm``), as
 ``dots_with_no_batch_dims_saveable`` does.  K2's and K3's forwards run
@@ -59,6 +72,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.service import resolve_device
+from repro_torch.instrument.tracer import span
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -201,6 +215,52 @@ def apply_mamba_block(bp, x, cfg, dist=None):
                       dist)
 
 
+def init_shared_block(gen, cfg, device=None):
+    """One shared block of the published Zamba2 layout: the norm of its
+    input ``concat(x, e)``, ``2 d_model`` wide, GQA reading that input, the
+    norm before the MLP and the MLP."""
+    dt = L.dtype_of(cfg.param_dtype)
+    d_in = 2 * cfg.d_model
+    return {"ln1": L.init_norm(cfg.norm, d_in, dt, device),
+            "attn": A.init_gqa(gen, cfg, dt, device, d_in=d_in),
+            "ln2": L.init_norm(cfg.norm, cfg.d_model, dt, device),
+            "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
+                              cfg.use_bias, dt, device)}
+
+
+def init_hybrid_extras(gen, cfg, device=None):
+    """A hybrid layer's own leaves beside its mamba block: the adapter of
+    the shared MLP's ``gate_up`` and the output linear."""
+    dt = L.dtype_of(cfg.param_dtype)
+    return {"adapter": L.init_adapter(gen, cfg.d_model, cfg.adapter_rank,
+                                      cfg.d_ff, dt, device),
+            "linear": L.dense_init(gen, (cfg.d_model, cfg.d_model), dt,
+                                   device=device)}
+
+
+def apply_shared_block(sp, x, e, cfg, positions, spec,
+                       impl=A.blocked_attention, adapter=None):
+    """The shared block on the hybrid layer's input x and the embedding e:
+    ``m = mlp(rms(attn(rms(concat(x, e)))))``, no residual inside it."""
+    with span("hybrid.shared_block"):
+        h = L.apply_norm(sp["ln1"], torch.cat([x, e], dim=-1), cfg.norm,
+                         cfg.norm_eps)
+        a, _ = A.apply_gqa(sp["attn"], h, cfg, positions, spec, impl)
+        h = L.apply_norm(sp["ln2"], a, cfg.norm, cfg.norm_eps)
+        return L.apply_mlp(sp["mlp"], h, cfg.mlp, cfg.gelu_exact, adapter)
+
+
+def apply_hybrid_layer(bp, sp, x, e, cfg, positions, spec,
+                       impl=A.blocked_attention):
+    """A hybrid layer: its shared block's output through the layer's
+    linear enters the mamba layer's normed input, ``x + mamba(rms(x +
+    t))``."""
+    t = apply_shared_block(sp, x, e, cfg, positions, spec, impl,
+                           bp["adapter"]) @ bp["linear"]
+    h = L.apply_norm(bp["ln"], x + t, cfg.norm, cfg.norm_eps)
+    return x + S.apply_mamba2(bp["mamba"], h, cfg)
+
+
 def decode_mamba_block(bp, x, cfg, cache, dist=None):
     h = L.apply_norm(bp["ln"], x, cfg.norm, cfg.norm_eps)
     y, new_cache = S.mamba2_decode(bp["mamba"], h, cfg, cache, dist)
@@ -294,6 +354,10 @@ class Transformer:
                  folded: bool = False, pad_heads: bool = False):
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}")
+        if cfg.published_hybrid and dist is not None \
+                and dist.mesh is not None:
+            raise NotImplementedError(
+                "the published Zamba2 layout runs on one device: no mesh")
         if remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
         self.cfg = cfg
@@ -340,7 +404,13 @@ class Transformer:
         if cfg.family in ("ssm", "hybrid"):
             p["blocks"] = [init_mamba_block(gen, cfg, device)
                            for _ in range(cfg.num_layers)]
-            if cfg.family == "hybrid":
+            if cfg.published_hybrid:
+                for i in cfg.hybrid_ids:
+                    p["blocks"][i].update(init_hybrid_extras(gen, cfg,
+                                                             device))
+                p["shared"] = [init_shared_block(gen, cfg, device)
+                               for _ in range(cfg.num_mem_blocks)]
+            elif cfg.family == "hybrid":
                 p["shared_attn"] = init_attn_block(gen, cfg, device)
         elif cfg.family == "moe":
             p["blocks"] = [
@@ -376,6 +446,8 @@ class Transformer:
         full = attn_spec(cfg, 0, folded)
         if cfg.family == "ssm":
             return []
+        if cfg.published_hybrid:
+            return [sw] * len(cfg.hybrid_ids)
         if cfg.family == "hybrid":
             return [sw] * hybrid_layout(cfg)[0]
         if cfg.local_global:
@@ -427,7 +499,24 @@ class Transformer:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         specs = self.layer_specs(self.folded)
         kvs, stats_sum = [], None
-        if cfg.family == "hybrid":
+        if cfg.published_hybrid:
+            if collect_cache:
+                raise NotImplementedError(
+                    "the published Zamba2 layout runs training only: no "
+                    "cache is collected")
+            def hybrid_body(x, e, bp, sp, spec):
+                return apply_hybrid_layer(bp, sp, x, e, cfg, positions, spec,
+                                          impl)
+            hybrid = self._maybe_remat(hybrid_body)
+            e, ids = x, cfg.hybrid_ids
+            for i, bp in enumerate(blocks):
+                if i in ids:
+                    j = ids.index(i)
+                    x = hybrid(x, e, bp, p["shared"][j % cfg.num_mem_blocks],
+                               specs[j])
+                else:
+                    x = mamba(bp, x)
+        elif cfg.family == "hybrid":
             k = cfg.shared_attn_every
             ngroups, _ = hybrid_layout(cfg)
 
@@ -521,6 +610,9 @@ class Transformer:
         for each application of the shared block, in order (its window's
         ring once ``max_len`` exceeds it)."""
         cfg = self.cfg
+        if cfg.published_hybrid:
+            raise NotImplementedError(
+                "the published Zamba2 layout runs training only: no cache")
         dt = L.dtype_of(cfg.dtype)
         device = _device(device)
         if cfg.family in ("ssm", "hybrid"):
@@ -560,6 +652,9 @@ class Transformer:
         {'embeds': (B,1,d)}; pos: the current position.  Updates ``cache``
         in place; returns (logits (B,1,V), cache)."""
         cfg = self.cfg
+        if cfg.published_hybrid:
+            raise NotImplementedError(
+                "the published Zamba2 layout runs training only: no decode")
         x = self._embed_inputs(p, batch)
         if cfg.family == "ssm":
             for bp, c in zip(p["blocks"], cache):

@@ -826,3 +826,112 @@ def test_k4_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         K4.rms_norm.forward(x[..., ::2], s[:128], 1e-5)
     assert K4.rms_norm.launches == before
+
+
+def test_k2_at_published_zamba2_head_dim():
+    """The published Zamba2-7B's shared attention (32 heads of 224 over
+    concat(x, embedding)): bf16 on the wgmma kernel, f32 on the SIMT one,
+    and its bound at 4096 causal tokens counts the real head dim, not the
+    256-wide tiles it runs on: 8 390 656 pairs x 32 heads x 4 x 224 FLOPs
+    = 240.5 GFLOP at 989 TFLOP/s."""
+    from repro_torch.configs.registry import get_arch
+    assert get_arch("zamba2-7b-instruct").head_dim == 224
+    assert variant_for(torch.bfloat16, 224) == "wgmma"
+    assert variant_for(torch.float32, 224) == "simt"
+    q = torch.empty((1, 4096, 32, 224), dtype=torch.bfloat16, device="meta")
+    ms, by = k2_bound_ms(q, q)
+    flops = 4096 * 4097 // 2 * 32 * 4 * 224
+    assert by == "operations"
+    assert ms == pytest.approx(flops / 989e12 * 1e3, rel=1e-12)
+
+
+#: (B, S, H, KV, options) of K2 at head dim 224 (the published Zamba2-7B:
+#: 32 heads, 32 kv heads, causal): its training layer at 4096 tokens, a
+#: length that is no multiple of the 64-row kv tile, and an even G (two
+#: heads a block) windowed and capped
+K2_224_CASES = [(1, 4096, 32, 32, {}), (1, 200, 32, 32, {}),
+                (2, 300, 4, 2, dict(window=100, softcap=30.0))]
+
+
+@pytest.mark.gpu
+def test_k2_at_head_dim_224_matches_plain_version_on_card():
+    """bf16 at D = Dv = 224 on the wgmma kernel (tiles of 256, columns
+    224-255 zero-filled by TMA and not stored), counted at head dim 224:
+    within one bf16 step of the plain version and lse within 1e-3 (K2's
+    bf16 limits), also when q, k and v are views of one fused projection
+    (a store past column 224 would land on the next head).  f32 at 224
+    runs the SIMT kernel within 2e-5."""
+    _cuda()
+    for i, (B, S, H, KV, kw) in enumerate(K2_224_CASES):
+        q, k, v = _k2_inputs(80 + i, (B, S, H, 224), (B, S, KV, 224),
+                             torch.bfloat16)
+        before = flash_attention.launches_by_head_dim[224]
+        out, lse = flash_attention(q, k, v, return_lse=True,
+                                   scale=112 ** -0.5, **kw)
+        ref, ref_lse = flash_attention_reference(q, k, v, scale=112 ** -0.5,
+                                                 **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_head_dim[224] == before + 1
+        assert out.shape == (B, S, H, 224)
+        assert _bf16_within_limits(out, ref, lse, ref_lse), i
+    g = torch.Generator(device="cuda").manual_seed(9)
+    qkv = torch.randn((2, 130, 3, 8, 224), generator=g,
+                      device="cuda").bfloat16()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    ref, ref_lse = flash_attention_reference(q, k, v)
+    assert _bf16_within_limits(out, ref, lse, ref_lse)
+    q, k, v = _k2_inputs(90, (1, 256, 4, 224), (1, 256, 4, 224),
+                         torch.float32)
+    before = flash_attention.launches_by_variant["simt"]
+    out, lse = flash_attention(q, k, v, return_lse=True, window=100)
+    ref, ref_lse = flash_attention_reference(q, k, v, window=100)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_variant["simt"] == before + 1
+    assert float((out - ref).abs().max()) < 2e-5
+    assert float((lse - ref_lse).abs().max()) < 1e-5
+
+
+#: (dtype, leading dims, (H, P), groups) of K4's gated variant with the
+#: norm per group: the published Zamba2-7B's layer (112 heads of 64, 2
+#: groups), f32, and groups whose start is off the vector (3 x 12 columns)
+K4_GROUPED_CASES = [(torch.bfloat16, (1, 4096), (112, 64), 2),
+                    (torch.float32, (2, 300), (112, 64), 2),
+                    (torch.bfloat16, (2, 9), (6, 6), 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K4_GROUPED_CASES)
+def test_k4_grouped_gated_matches_plain_version_on_card(case):
+    """The gated variant with one rstd a row and group: the output within
+    one bf16 step of the plain version elementwise (f32: 1e-5 of the
+    largest), rstd (rows, groups) within 1e-5, each gradient within 2^-6
+    (bf16) or 1e-4 (f32) of its largest, the backward the same bits run
+    after run."""
+    _cuda()
+    dtype, lead, width, groups = case
+    ins, g = _k4_inputs("gated", dtype, lead, width, 5)
+    y, xs, D, z, scale = ins
+    rms = K4.rms_norm
+    before = rms.launches_by_variant["gated"]
+    out, rstd = rms.forward(y, scale, 1e-5, xs, D, z, groups)
+    grads = rms.backward(g, y, scale, rstd, xs, D, z, groups)
+    again = rms.backward(g, y, scale, rstd, xs, D, z, groups)
+    ref, ref_rstd = K4.gated_rms_norm_reference(*ins, 1e-5, groups)
+    ref_grads = K4.gated_rms_norm_backward_reference(g, y, xs, D, z, scale,
+                                                     ref_rstd, groups)
+    torch.cuda.synchronize()
+    assert rms.launches_by_variant["gated"] == before + 3
+    assert rstd.shape == tuple(lead) + (groups,) == ref_rstd.shape
+    if dtype == torch.bfloat16:
+        assert bool(((out.float() - ref.float()).abs()
+                     <= 2.0 ** -7 * ref.float().abs()).all())
+    else:
+        assert float((out - ref).abs().max() / ref.abs().max()) < 1e-5
+    assert float(((rstd - ref_rstd).abs() / ref_rstd).max()) < 1e-5
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    for a, b, c in zip(grads, ref_grads, again):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max()) < tol
+        assert torch.equal(a.view(torch.uint8), c.view(torch.uint8))

@@ -306,7 +306,7 @@ def test_the_card_checks_are_made_once_a_layout(monkeypatch):
     another stride, type or direction anew."""
     made = []
 
-    def card_checks(x, scale, xs, D, z, backward):
+    def card_checks(x, scale, xs, D, z, backward, groups=1):
         made.append((tuple(x.shape), x.stride(), x.dtype, backward))
         return (tuple(x.shape), x.shape[-1], 0, (x.stride(-2), 0, 0))
     monkeypatch.setattr(K4, "card_checks", card_checks)
@@ -426,9 +426,9 @@ def test_models_route_to_k4_what_it_takes(monkeypatch):
     calls = []
     orig = K4.RMSNorm.forward
 
-    def spy(self, x, scale, eps, xs=None, D=None, z=None):
+    def spy(self, x, scale, eps, xs=None, D=None, z=None, groups=1):
         calls.append("gated" if xs is not None else "plain")
-        return orig(self, x, scale, eps, xs, D, z)
+        return orig(self, x, scale, eps, xs, D, z, groups)
     monkeypatch.setattr(K4.RMSNorm, "forward", spy)
     with FakeTensorMode():
         x = torch.empty((1, 64, 32), device="cuda", dtype=torch.bfloat16)
@@ -504,9 +504,9 @@ def test_mamba2_step_counts_k4_once_a_norm_and_the_dry_count_equals_it(
     calls = []
     orig = K4.RMSNorm.forward
 
-    def spy(self, x, scale, eps, xs=None, D=None, z=None):
+    def spy(self, x, scale, eps, xs=None, D=None, z=None, groups=1):
         calls.append(xs is not None)
-        return orig(self, x, scale, eps, xs, D, z)
+        return orig(self, x, scale, eps, xs, D, z, groups)
     monkeypatch.setattr(K4.RMSNorm, "forward", spy)
     want = count(False)
     assert len(calls) == 2 * cfg.num_layers + 1
