@@ -11,8 +11,10 @@ at D 64-256 (112 on the tiles of 128) and at MLA's q/k 192 with v 128, and
 the SIMT kernel for f32 and bf16 at D 16-32) and K3
 (``src/repro_torch/csrc/ssd_scan.cu``: four wgmma/TMA passes for bf16 at
 P 64/128, N and chunk multiples of 64 up to 256, and the SIMT kernel for the
-rest) and K4 (``src/repro_torch/csrc/rms_norm.cu``: the RMS norm, plain and
-with mamba2's skip and gate, forward and backward) with nvcc for sm_90a,
+rest), K4 (``src/repro_torch/csrc/rms_norm.cu``: the RMS norm, plain and
+with mamba2's skip and gate, forward and backward) and K5
+(``src/repro_torch/csrc/causal_conv.cu``: mamba2's causal conv and SiLU,
+forward and backward) with nvcc for sm_90a,
 all at once, prints their ptxas reports and how
 many HGMMA and UTMALDG instructions K2's and K3's SASS hold, and then runs
 these phases, each checked:
@@ -81,12 +83,20 @@ these phases, each checked:
    bf16 and f32, deepseek-v2's strided MLA latent, widths off the 16-byte
    vector), forward and backward, the backward the same bits three times,
    and each direction timed at mamba2-2.7b's two norms beside its bytes
-   bound and the composed ops it replaces;
+   bound and the composed ops it replaces; then ``[k5 check]``, K5 (the
+   causal conv and SiLU) against the composed ops and autograd through
+   them (``K5_CASES``: mamba2-2.7b's and the published Zamba2-7B's xs and
+   B/C convs, a batch-4 ragged serve prefill, rows fewer than W, channels
+   off the vector, f32), the forward's differing elements counted (bf16
+   steps), the backward the same bits three times, and ``[k5 time]``,
+   each direction's device time at the main path's convs beside its bytes
+   bound, the composed ops and ``F.conv1d(groups=C)`` with ``F.silu``;
 7. the full mamba2-2.7b trainer (64 layers, full width, bf16 with f32
    ``A_log``/``D``/``dt_bias`` and fp32 AdamW state) for 5 steps of batch
    1 x 2048 tokens: 64 K3 launches a step, all of the wgmma variant, 129
-   K4 launches a step each way (64 plain, 64 gated, the final norm), finite
-   losses and grad norms;
+   K4 launches a step each way (64 plain, 64 gated, the final norm), 192
+   K5 launches a step each way (xs, B and C of each layer), finite losses
+   and grad norms;
 8. the online loop (detect, summarize with K1 every window, localize, plan,
    mitigate): ``[online catalog]``, all 22 scenarios of
    ``online/catalog.py`` through ``run_scenario(sc)`` on the card, each
@@ -136,7 +146,8 @@ these phases, each checked:
    forward through K2's and K3's SIMT kernels within 0.2% of the largest
    logit, greedy tokens equal where the margin exceeds that; ``[hybrid
    trainer]``, zamba2-7b at full width cut to 15 layers (2 groups of 6 and
-   the 3-layer tail), 5 steps of 1 x 2048 tokens, 2 K2 and 15 K3 wgmma
+   the 3-layer tail), 5 steps of 1 x 2048 tokens, 45 K5 launches each way
+   a step, 2 K2 and 15 K3 wgmma
    launches a step, then 2 steps with ``remat="full"`` from the same
    weights and batches, equal within 1e-3 relative, with K2 rerun in the
    backward;
@@ -1217,14 +1228,196 @@ def k4_timing(K4, flush) -> dict:
     return out
 
 
+#: K5's cases on the card: (label, batch, rows, channels, type): the xs and
+#: B / C convs of mamba2-2.7b (2048 rows) and of the published Zamba2-7B
+#: (4096 rows), a batch-4 serve prefill of a ragged 37 rows, rows fewer
+#: than W, channels off the forward's 8-byte vector, and f32
+K5_CASES = (
+    ("mamba2 xs", 1, MAMBA_SEQ, 5120, torch.bfloat16),
+    ("mamba2 B/C", 1, MAMBA_SEQ, 128, torch.bfloat16),
+    ("zamba2-7b-instruct xs", 1, INSTRUCT_SEQ, 7168, torch.bfloat16),
+    ("zamba2-7b-instruct B/C", 1, INSTRUCT_SEQ, 128, torch.bfloat16),
+    ("serve prefill xs", 4, 37, 7168, torch.bfloat16),
+    ("serve prefill B/C", 4, 37, 128, torch.bfloat16),
+    ("rows < W", 3, 2, 40, torch.bfloat16),
+    ("channels 102", 2, 50, 102, torch.bfloat16),
+    ("f32", 2, 300, 512, torch.float32),
+)
+#: K5 vs the composed ops' autograd, gradients: max |err| / max |ref|
+#: (bf16: dpre and dx's four products in another order, dw's and db's rows
+#: summed in another order, each rounded once; f32: the orders alone)
+K5_BF16_TOL = 2.0 ** -7
+K5_F32_TOL = 1e-4
+
+
+def k5_inputs(B, S, C, dtype, seed: int) -> tuple:
+    """x (B, S, C), the taps (C, 4) at the init's scale, a bias, and the
+    output's gradient, on the card, from the seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ins = [_rand(g, (B, S, C), dtype),
+           (_rand(g, (C, 4), torch.float32) / 2).to(dtype),
+           (0.1 * _rand(g, (C,), torch.float32)).to(dtype)]
+    return ins, _rand(g, (B, S, C), dtype)
+
+
+def bf16_steps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance of two bf16 tensors in bf16 steps."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def k5_checks(K5) -> dict:
+    """K5 against the composed ops it replaces (``models.ssm._causal_conv``
+    then ``F.silu``, and autograd through them) on every ``K5_CASES`` case:
+    the forward their bits, or each differing element within one bf16 step
+    (the count printed; f32: 1e-6 of the largest), each gradient within
+    ``K5_BF16_TOL`` / ``K5_F32_TOL`` of its largest, the backward the same
+    bits three times, one launch counted a call and direction.  Returns the
+    worst figures."""
+    from repro_torch.models import ssm as S
+    F = torch.nn.functional
+    worst = {"forward_differ": 0, "forward_steps": 0, "grad": 0.0}
+    for i, (label, B, Sq, C, dt) in enumerate(K5_CASES):
+        ins, g = k5_inputs(B, Sq, C, dt, 60 + i)
+        grad_ins = [t.detach().requires_grad_(True) for t in ins]
+        k5 = K5.causal_conv_silu
+        before = dict(k5.launches_by_direction)
+        with torch.enable_grad():
+            out = k5(*grad_ins)
+            grads = torch.autograd.grad(out, grad_ins, g)
+            ref = F.silu(S._causal_conv(*grad_ins))
+            ref_grads = torch.autograd.grad(ref, grad_ins, g)
+        again = [k5.backward(g, *ins) for _ in range(2)]
+        torch.cuda.synchronize()
+        if k5.launches_by_direction != {"forward": before["forward"] + 1,
+                                        "backward": before["backward"] + 3}:
+            raise AssertionError(f"[k5 check] {label}: launches not counted")
+        if dt == torch.bfloat16:
+            steps = bf16_steps(out, ref)
+            differ, most = int((steps > 0).sum()), int(steps.max())
+            ok_out = most <= 1
+            fwd = f"{differ} of {out.numel()} elements differ, at most {most}"
+            worst["forward_differ"] += differ
+            worst["forward_steps"] = max(worst["forward_steps"], most)
+        else:
+            err = float((out - ref).abs().max() / ref.abs().max())
+            ok_out, fwd = err < 1e-6, f"max |err| / max {err:.3g}"
+        errs = [float((a.float() - b.float()).abs().max()
+                      / b.float().abs().max())
+                for a, b in zip(grads, ref_grads)]
+        tol = K5_BF16_TOL if dt == torch.bfloat16 else K5_F32_TOL
+        same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for run in again for a, b in zip(grads, run))
+        vec = [K5.vector(d, dt, C, [ins[0]], ins[0].stride()[:2])
+               for d in K5.DIRECTIONS]
+        print(f"[k5 check] {label} ({B}, {Sq}, {C}) {dt}, vectors of "
+              f"{vec[0]} / {vec[1]} elements: forward {fwd} (bf16 steps); "
+              f"gradients dx, dw, db {[f'{e:.3g}' for e in errs]} (limit "
+              f"{tol:.3g}); backward the same bits 3 times: {same}")
+        if not (ok_out and max(errs) < tol and same
+                and all(torch.isfinite(t).all() for t in grads)):
+            raise AssertionError(f"[k5 check] {label} disagrees with the "
+                                 f"composed ops")
+        worst["grad"] = max(worst["grad"], max(errs))
+    return worst
+
+
+def k5_timing(K5, flush) -> dict:
+    """K5 at the main path's convs (mamba2-2.7b's xs and B/C at 2048 rows,
+    the published Zamba2-7B's xs at 4096), bf16: each direction's device
+    time by ``torch.profiler`` (the mean of ``TIMED_LAUNCHES`` calls, each
+    after an L2 flush; the backward's two kernels summed) beside its bytes
+    bound; the composed ops it replaces (forward, and forward + backward
+    under autograd) and the library call that computes the same function,
+    ``F.conv1d(groups=C)`` with ``F.silu`` (its output against K5's; only
+    this script calls it), by CUDA events queued behind a spin."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm as S
+    F = torch.nn.functional
+    out = {}
+    for key, B, Sq, C in (("mamba2_xs", 1, MAMBA_SEQ, 5120),
+                          ("mamba2_bc", 1, MAMBA_SEQ, 128),
+                          ("zamba2_instruct_xs", 1, INSTRUCT_SEQ, 7168)):
+        ins, g = k5_inputs(B, Sq, C, torch.bfloat16, 9)
+        x, w, b = ins
+        k5 = K5.causal_conv_silu
+        res = k5.forward(*ins)
+        grads = k5.backward(g, *ins)
+        fwd_bound = K5.bound_ms([x, res])
+        bwd_bound = K5.bound_ms([g, x] + grads)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIMED_LAUNCHES):
+                flush.zero_()
+                k5.forward(*ins)
+                flush.zero_()
+                k5.backward(g, *ins)
+            torch.cuda.synchronize()
+        seen = {"conv_fwd": [], "conv_bwd": [], "conv_col_sum": []}
+        for e in device_events(prof):
+            for name in seen:
+                if name in e.name():
+                    seen[name].append(e.duration_ns() / 1e6)
+        mean = {k: sum(v) / len(v) if v else float("nan")
+                for k, v in seen.items()}
+        dev_fwd, dev_bwd = mean["conv_fwd"], mean["conv_bwd"] \
+            + mean["conv_col_sum"]
+        grad_ins = [t.detach().requires_grad_(True) for t in ins]
+        plain_fwd = queued_ms(lambda: F.silu(S._causal_conv(*ins)),
+                              TIMED_LAUNCHES, flush)
+
+        def plain_both():
+            with torch.enable_grad():
+                o = F.silu(S._causal_conv(*grad_ins))
+                torch.autograd.grad(o, grad_ins, g)
+
+        def library(x, w, b):
+            y = F.conv1d(x.transpose(1, 2), w[:, None, :], b,
+                         padding=w.shape[1] - 1, groups=C)[..., :Sq]
+            return F.silu(y).transpose(1, 2)
+
+        def lib_both():
+            with torch.enable_grad():
+                o = library(*grad_ins)
+                torch.autograd.grad(o, grad_ins, g)
+        plain_both_ms = queued_ms(plain_both, TIMED_LAUNCHES, flush)
+        lib_ms = queued_ms(lambda: library(*ins), TIMED_LAUNCHES, flush)
+        lib_both_ms = queued_ms(lib_both, TIMED_LAUNCHES, flush)
+        lib_steps = bf16_steps(library(*ins), res)
+        print(f"[k5 time] {key} ({B}, {Sq}, {C}) bf16: forward device "
+              f"{dev_fwd:.4f} ms (bound {fwd_bound:.4f} ms by bytes, "
+              f"{fwd_bound / dev_fwd:.1%}), backward device {dev_bwd:.4f} ms"
+              f" (conv_bwd {mean['conv_bwd']:.4f} + conv_col_sum "
+              f"{mean['conv_col_sum']:.4f}; bound {bwd_bound:.4f} ms, "
+              f"{bwd_bound / dev_bwd:.1%}); kernels recorded "
+              f"{ {k: len(v) for k, v in seen.items()} }; the composed ops: "
+              f"forward {plain_fwd:.4f} ms, forward + backward "
+              f"{plain_both_ms:.4f} ms (K5 {dev_fwd + dev_bwd:.4f} ms); library "
+              f"F.conv1d(groups=C) + F.silu: forward {lib_ms:.4f} ms, "
+              f"forward + backward {lib_both_ms:.4f} ms (its output within "
+              f"{int(lib_steps.max())} bf16 steps of K5's, "
+              f"{int((lib_steps > 0).sum())} elements differ)")
+        out[key] = dict(device_ms=dev_fwd, backward_device_ms=dev_bwd,
+                        bound_ms=fwd_bound, backward_bound_ms=bwd_bound,
+                        plain_ms=plain_fwd,
+                        plain_fwd_bwd_ms=plain_both_ms, library_ms=lib_ms,
+                        library_fwd_bwd_ms=lib_both_ms)
+        del ins, g, res, grads, grad_ins
+    return out
+
+
 def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
                   TrainConfig, DataConfig, OptConfig, Tracer) -> dict:
     """The full trainer of ``cfg``: 5 instrumented steps of batch 1 x
     ``seq`` tokens on the card.  ``counter`` is the wrapper of the kernel
     the path runs once a layer (``label`` names it, ``fragment`` is a piece
     of its device-side name for the profiler).  Returns, besides, K2's and
-    K3's launches by variant over the counted steps, and K4's by direction
-    in each step."""
+    K3's launches by variant over the counted steps, and K4's and K5's by
+    direction in each step."""
+    from repro_torch.kernels.causal_conv import causal_conv_silu
     from repro_torch.kernels.rms_norm import rms_norm
     tr = Trainer(cfg, DataConfig(batch=1, seq_len=seq), OptConfig(),
                  TrainConfig(perftracker=False), device="cuda")
@@ -1248,15 +1441,18 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
     tracer = Tracer(worker=0)
     tracer.start_window()
     reset_counts(*kernels)
-    per_step, rows, aux, k4_steps = [], [], [], []
+    per_step, rows, aux, k4_steps, k5_steps = [], [], [], [], []
     for i in range(TRAIN_STEPS):
         before = counter.launches
         k4_before = dict(rms_norm.launches_by_direction)
+        k5_before = dict(causal_conv_silu.launches_by_direction)
         params, opt_state, m = tr.train_iteration(params, opt_state,
                                                   tracer=tracer)
         per_step.append(counter.launches - before)
         k4_steps.append({d: rms_norm.launches_by_direction[d] - k4_before[d]
                          for d in k4_before})
+        k5_steps.append({d: causal_conv_silu.launches_by_direction[d]
+                         - k5_before[d] for d in k5_before})
         rows.append((float(m["loss"]), float(m["grad_norm"])))
         aux.append(float(m["aux"]))
     launches = counter.launches
@@ -1282,8 +1478,8 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
         print(f"{tag} step {i + 1}: dataloader.next {d:.4f} s, "
               f"train.step {s:.4f} s, optimizer.step {o:.4f} s; loss "
               f"{loss:.4f}{aux_note} grad norm {gnorm:.4f}; {label} launches "
-              f"{per_step[i]}, K4 {k4_steps[i]}; max memory allocated {peak} "
-              f"bytes")
+              f"{per_step[i]}, K4 {k4_steps[i]}, K5 {k5_steps[i]}; max memory "
+              f"allocated {peak} bytes")
     if not all(math.isfinite(x) for r in rows for x in r):
         raise AssertionError("trainer loss or grad norm not finite")
     if cfg.is_moe and not all(math.isfinite(a) and a > 0 for a in aux):
@@ -1300,7 +1496,18 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
                 peak=peak, state_bytes=state_bytes, profile=profile, aux=aux,
                 k2_by_variant=k2_k3[0], k3_by_variant=k2_k3[1], cost=cost,
                 step_cost=bundle.cost, k4_per_step=k4_steps,
-                k4_by_variant=k4_by_variant)
+                k4_by_variant=k4_by_variant, k5_per_step=k5_steps)
+
+
+def k5_check_steps(tag, run, mamba_layers: int) -> None:
+    """K5 launched three times a mamba layer (xs, B, C) each way in every
+    counted step of a ``trainer_phase`` run."""
+    want = {"forward": 3 * mamba_layers, "backward": 3 * mamba_layers}
+    print(f"{tag} K5 launches a step {run['k5_per_step'][0]} (xs, B and C "
+          f"of each of {mamba_layers} mamba layers, each way)")
+    if run["k5_per_step"] != [want] * TRAIN_STEPS:
+        raise AssertionError(f"{tag} K5 launches per step "
+                             f"{run['k5_per_step']}, expected {want}")
 
 
 def step_cost_line(tag, cfg, seq, bundle, count_s) -> dict:
@@ -3164,6 +3371,7 @@ def main() -> int:
         from repro_torch.core.simulation import (ALLGATHER, GEMM,
                                                  FleetSimulator, SimConfig)
         from repro_torch.kernels import _build
+        from repro_torch.kernels import causal_conv as K5
         from repro_torch.kernels import flash_attention as K2
         from repro_torch.kernels import pattern_summary as K
         from repro_torch.kernels import rms_norm as K4
@@ -3194,12 +3402,13 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("fp32 matmuls must not run in TF32")
 
-    # -- 1. build the four kernels at once -------------------------------------
+    # -- 1. build the five kernels at once -------------------------------------
     t = time.perf_counter()
     libs = _build.build_all([(K.SOURCE, "k1_pattern_summary"),
                              (K2.SOURCE, "k2_flash_attention"),
                              (K3.SOURCE, "k3_ssd_scan"),
-                             (K4.SOURCE, "k4_rms_norm")])
+                             (K4.SOURCE, "k4_rms_norm"),
+                             (K5.SOURCE, "k5_causal_conv")])
     print(f"[build] {[lib.name for lib in libs]} in "
           f"{time.perf_counter() - t:.2f}s (parallel nvcc)")
     for lib in libs:
@@ -3212,6 +3421,7 @@ def main() -> int:
     K2.flash_attention.library()
     K3.ssd_scan.library()
     K4.rms_norm.library()
+    K5.causal_conv_silu.library()
     for dt in (torch.bfloat16, torch.float32):
         print(f"[build] K2 {dt}: " + ", ".join(
             f"D={d} {K2.variant_for(dt, d)} "
@@ -3455,9 +3665,14 @@ def main() -> int:
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device="cuda")
     k4_time = k4_timing(K4, flush)
+    clock.lap("K4 check and time")
+
+    # -- 8c. K5 against the composed ops, and its times -----------------------
+    k5_err = k5_checks(K5)
+    k5_time = k5_timing(K5, flush)
     del flush
     torch.cuda.empty_cache()
-    clock.lap("K4 check and time")
+    clock.lap("K5 check and time")
 
     # -- 9. the full mamba2-2.7b trainer: the main path of K3 -----------------
     mcfg = ARCHS[MAMBA]
@@ -3486,6 +3701,7 @@ def main() -> int:
                 "gated": 2 * mcfg.num_layers * TRAIN_STEPS}:
         raise AssertionError("the mamba2 trainer's K4 launches were not one "
                              "a norm each way")
+    k5_check_steps("[mamba2 trainer]", mtr, mcfg.num_layers)
     clock.lap("mamba2 trainer")
 
     # -- 10. the online loop: catalog, paper-window fleet, real rollback ------
@@ -3539,6 +3755,7 @@ def main() -> int:
                 "wgmma": ZAMBA_TRAIN_LAYERS * TRAIN_STEPS, "simt": 0}:
         raise AssertionError("the hybrid trainer's K2 and K3 launches were "
                              "not all wgmma, or not one an application")
+    k5_check_steps("[hybrid trainer]", hyb_tr, ZAMBA_TRAIN_LAYERS)
     hyb_remat = hybrid_remat_phase(K, K2, K3, zcfg, hyb_tr, Trainer,
                                    TrainConfig, DataConfig, OptConfig)
     clock.lap("hybrid trainer")
@@ -3756,6 +3973,32 @@ def main() -> int:
         "library_fwd_bwd_ms": k4_time["plain"]["library_fwd_bwd_ms"],
         "dry_run": "traced through repro_torch::rms_norm_fwd / _bwd's fake "
                    "implementations",
+    }, {
+        "name": "causal_conv_silu",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/causal_conv.cu",
+        "replaces": None,
+        "why": "keeps the conv's padded f32 copy of its input out of device "
+               "memory (the composed ops save it for autograd)",
+        "launches_per_mamba2_step": mtr["k5_per_step"][0],
+        "launches_per_zamba2_step": hyb_tr["k5_per_step"][0],
+        "shape": "bf16 (1, 2048, 5120) and (1, 2048, 128): one mamba2-2.7b "
+                 "layer's xs and B / C convs; (1, 4096, 7168): one "
+                 "zamba2-7b-instruct layer's xs conv",
+        "forward_elements_differing": k5_err["forward_differ"],
+        "forward_max_bf16_steps": k5_err["forward_steps"],
+        "max_rel_err_grad": k5_err["grad"],
+        "device_ms": k5_time["mamba2_xs"]["device_ms"],
+        "backward_device_ms": k5_time["mamba2_xs"]["backward_device_ms"],
+        "bound_ms": k5_time["mamba2_xs"]["bound_ms"],
+        "backward_bound_ms": k5_time["mamba2_xs"]["backward_bound_ms"],
+        "bound_by": "bytes",
+        "plain_ms": k5_time["mamba2_xs"]["plain_ms"],
+        "library_ms": k5_time["mamba2_xs"]["library_ms"],
+        "library_call": "torch.nn.functional.conv1d(groups=C) + silu",
+        "timings": k5_time,
+        "dry_run": "traced through repro_torch::causal_conv_silu_fwd / "
+                   "_bwd's fake implementations",
     }]}))
     print(f"[step cost] summary: " + json.dumps({
         "card_vs_cpu_reduced_gemma2": cost_check,

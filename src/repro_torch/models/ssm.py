@@ -16,7 +16,10 @@ the forward values are the same, but at mamba2's widths (chunk 256, A down to
 ``0 * inf = NaN``.  Here the gradients stay finite.
 
 Projections stay separate (``w_z``/``w_x``/``w_B``/``w_C``/``w_dt``), as in
-the reference.  Shapes: x ``(B, S, d_model)``; heads ``(B, S, H, P)`` with
+the reference.  Each of xs, B and C then passes the depthwise causal conv
+and SiLU (``conv_silu``): K5 (``repro_torch.kernels.causal_conv``) on a CUDA
+tensor, the composed ops ``F.silu(_causal_conv(...))`` on a CPU one.
+Shapes: x ``(B, S, d_model)``; heads ``(B, S, H, P)`` with
 ``P = ssm_head_dim``, state ``N = ssm_state``, groups ``G`` (B and C are
 shared per group; head h reads group ``h // (H/G)``).
 """
@@ -28,6 +31,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import causal_conv as K5
 from repro_torch.kernels import rms_norm as K4
 from repro_torch.kernels.ssd_scan import masked_decay, ssd_scan
 from repro_torch.models import layers as L
@@ -76,20 +80,22 @@ def init_mamba2(gen: torch.Generator, cfg, dtype=torch.float32, device=None
     }
 
 
-def _causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
-    """Depthwise causal conv.  x: (B, S, C); w: (C, W).  W shifted float32
-    multiply-adds: no convolution library call, so nothing runs in TF32."""
-    W, S = w.shape[-1], x.shape[1]
-    xp = F.pad(x.float(), (0, 0, W - 1, 0))
-    wf = w.float()
-    out = xp[:, :S] * wf[:, 0]
-    for k in range(1, W):
-        out = out + xp[:, k:k + S] * wf[:, k]
-    return (out + b.float()).to(x.dtype)
+#: the depthwise causal conv as composed ops, x (B, S, C), w (C, W): W
+#: shifted float32 multiply-adds, no convolution library call, so nothing
+#: runs in TF32 (K5's plain version)
+_causal_conv = K5.causal_conv_reference
+
+
+def conv_silu(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    """``silu(causal conv of x + b)``, x (B, S, C), w (C, W), b (C,): K5 on a
+    tensor K5 takes (``K5.takes``), the composed ops on any other."""
+    if K5.takes(x):
+        return K5.causal_conv_silu(x, w, b)
+    return F.silu(_causal_conv(x, w, b))
 
 
 def _conv_region(dist, x):
-    """``_causal_conv`` on local shards: the batch over the data-parallel
+    """``conv_silu`` on local shards: the batch over the data-parallel
     dims, the sequence and channels whole (DTensor would pad a sequence it
     may have sharded for the product; not every PyTorch can plan that
     redistribution), the weights gathered, their gradients partial sums
@@ -99,7 +105,7 @@ def _conv_region(dist, x):
     dpe = dist.batch_entry(x)
     xspec = P(dpe, None, None)
     wgrad = dist.dp_partial(dpe is not None)
-    return shard_map(_causal_conv, mesh=dist.mesh,
+    return shard_map(conv_silu, mesh=dist.mesh,
                      in_specs=(xspec, P(None, None), P(None)),
                      in_grad_specs=(xspec, wgrad, wgrad), out_specs=xspec)
 
@@ -180,10 +186,10 @@ def apply_mamba2(p, x: Tensor, cfg, impl=ssd_k3, dist=None) -> Tensor:
     Cm = x @ p["w_C"]
     dt_raw = x @ p["w_dt"]
     conv = _conv_region(dist, x) if dist is not None \
-        and dist.mesh is not None else _causal_conv
-    xs = F.silu(conv(xs, p["conv_x_w"], p["conv_x_b"]))
-    Bm = F.silu(conv(Bm, p["conv_B_w"], p["conv_B_b"]))
-    Cm = F.silu(conv(Cm, p["conv_C_w"], p["conv_C_b"]))
+        and dist.mesh is not None else conv_silu
+    xs = conv(xs, p["conv_x_w"], p["conv_x_b"])
+    Bm = conv(Bm, p["conv_B_w"], p["conv_B_b"])
+    Cm = conv(Cm, p["conv_C_w"], p["conv_C_b"])
     xs = L.reshape(xs, (Bsz, S, H, P))
     Bm = L.reshape(Bm, (Bsz, S, G, N))
     Cm = L.reshape(Cm, (Bsz, S, G, N))
