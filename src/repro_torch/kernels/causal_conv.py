@@ -22,13 +22,14 @@ run).  Both directions run behind custom ops
 (``repro_torch::causal_conv_silu_fwd`` / ``_bwd``) whose fake
 implementations serve a dry run's tensors, and which
 ``launch.step_cost.count_step`` counts as the single ops they are (no
-FLOPs, the bytes of their tensor arguments and results), as it counts K4.
+FLOPs, the bytes of their tensor arguments and results).
 
-Who takes it is one rule, ``takes(x)``: a tensor on a CUDA device that is
-not a DTensor (inside ``models.ssm._conv_region`` a mesh's local shards
-are plain tensors, so they take it too).  Every other tensor runs the
-composed ops, so the CPU computes what it computed before K5 and every CPU
-test against the JAX package sees the same arithmetic.  A CUDA tensor the
+Who takes it is one rule, ``takes(x)`` (``common.takes``, K4's rule): a
+tensor on a CUDA device that is not a DTensor (inside
+``models.ssm._conv_region`` a mesh's local shards are plain tensors, so
+they take it too).  Every other tensor runs the composed ops, so the CPU
+computes what it computed before K5 and every CPU test against the JAX
+package sees the same arithmetic.  A CUDA tensor the
 kernel cannot take (another type, W > 4, channels not contiguous) raises;
 nothing falls back.  The functions and their custom ops run on CPU tensors
 too, through the plain versions (``causal_conv_silu_reference`` and
@@ -36,44 +37,34 @@ too, through the plain versions (``causal_conv_silu_reference`` and
 
 Replaces no TPU kernel: the JAX reference leaves the conv to XLA.  K5 was
 added to keep the conv's f32 copies out of device memory.  Bound on an
-H100: bytes (``bound_ms``), its inputs read once and its outputs written
-once at 3.35 TB/s.  ``launches`` counts calls that launched K5 (a forward
-or a backward), ``launches_by_direction`` each direction's; none on the
-CPU path.
+H100: bytes (``bound_ms``, ``common.bound_ms``), its inputs read once and
+its outputs written once at 3.35 TB/s.  ``launches`` counts calls that
+launched K5 (a forward or a backward), ``launches_by_direction`` each
+direction's; none on the CPU path.
 """
 from __future__ import annotations
 
-import ctypes
-from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.rms_norm import _on, unwatched
+from repro_torch.kernels import _build, common
+from repro_torch.kernels.common import (DTYPE_CODES, I, LL, P, Kernel,
+                                        Layouts, on, unwatched)
 
 Tensor = torch.Tensor
 
 SOURCE = _build.CSRC / "causal_conv.cu"
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 DIRECTIONS = ("forward", "backward")
 #: the widest conv the kernel takes (``kMaxW``)
 MAX_WIDTH = 4
 #: the vector a thread loads, in bytes, by direction (``kFwdBytes``,
 #: ``kBwdBytes``)
 VECTOR_BYTES = {"forward": 8, "backward": 4}
-#: layouts whose checks the wrapper keeps (``CausalConvSilu.checked``)
-MAX_LAYOUTS = 256
 
-#: H100 SXM device memory (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12
-
-
-def takes(x: Tensor) -> bool:
-    """Whether the models route ``x`` to K5: a tensor on a CUDA device (a
-    dry run's fake ones included) that is not a DTensor."""
-    return x.device.type == "cuda" and type(x).__name__ != "DTensor"
+#: who the models route to K5, and the bound of a call
+takes, bound_ms = common.takes, common.bound_ms
 
 
 def _ct(dtype: torch.dtype) -> torch.dtype:
@@ -181,56 +172,25 @@ def vector(direction: str, dtype: torch.dtype, C: int,
     return v if aligned else 1
 
 
-def bound_ms(tensors: Sequence[Tensor]) -> float:
-    """Least time an H100 could take for a call that reads or writes
-    ``tensors`` once each (its inputs and outputs), in ms."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    return nbytes / HBM_BYTES_PER_S * 1e3
-
-
-def build() -> Path:
-    """Compile the CUDA source unless built already; returns the library
-    (``repro_torch.kernels._build``)."""
-    return _build.build(SOURCE, "k5_causal_conv")
-
-
-class CausalConvSilu:
+class CausalConvSilu(Kernel):
     """The K5 wrapper.  Calling it runs the autograd function; ``forward``
     and ``backward`` are the two directions alone (the custom ops).
     ``launches`` and ``launches_by_direction`` are plain integers, never
     incremented on the CPU path."""
 
+    NAME, SOURCE = "K5", SOURCE
+    SIGNATURES = {
+        "k5_conv_fwd": ([P] * 5 + [I] * 4 + [LL, LL] + [I] * 2 + [P], I),
+        "k5_conv_bwd": ([P] * 8 + [I] * 4 + [LL, LL] + [I] * 2 + [P], I),
+        "k5_silu_table": ([P] * 2, I),
+        "k5_scratch_floats": ([I] * 6, LL)}
+    COUNTS = {"direction": DIRECTIONS}
+
     def __init__(self):
-        self.reset_counts()
-        self._lib: Optional[ctypes.CDLL] = None
-        #: ``card_checks``' result by the operands' layouts
-        self._layouts: dict = {}
+        super().__init__()
+        self._layouts = Layouts()
         #: SiLU's table by device (``silu_table``)
         self._tables: dict = {}
-
-    def reset_counts(self) -> None:
-        self.launches = 0
-        self.launches_by_direction = dict.fromkeys(DIRECTIONS, 0)
-
-    def library(self) -> ctypes.CDLL:
-        """Build (at first use) and load the kernel's shared library."""
-        if self._lib is None:
-            lib = ctypes.CDLL(str(build()))
-            ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-            lib.k5_conv_fwd.argtypes = [p] * 5 + [i] * 4 + [ll, ll] \
-                + [i] * 2 + [p]
-            lib.k5_conv_fwd.restype = i
-            lib.k5_conv_bwd.argtypes = [p] * 8 + [i] * 4 + [ll, ll] \
-                + [i] * 2 + [p]
-            lib.k5_conv_bwd.restype = i
-            lib.k5_silu_table.argtypes = [p] * 2
-            lib.k5_silu_table.restype = i
-            lib.k5_scratch_floats.argtypes = [i] * 6
-            lib.k5_scratch_floats.restype = ll
-            lib.k5_error_string.argtypes = [i]
-            lib.k5_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
 
     def __call__(self, x: Tensor, w: Tensor, b: Tensor) -> Tensor:
         return _CausalConvSilu.apply(x, w, b)
@@ -238,7 +198,7 @@ class CausalConvSilu:
     def forward(self, x: Tensor, w: Tensor, b: Tensor) -> Tensor:
         """The output: the kernel on CUDA tensors, the plain version on CPU
         ones, through the custom op ``repro_torch::causal_conv_silu_fwd``
-        wherever the dispatcher has a reader (``rms_norm.unwatched``)."""
+        wherever the dispatcher has a reader (``common.unwatched``)."""
         if unwatched((x, w, b)):
             return self._forward(x, w, b)
         return torch.ops.repro_torch.causal_conv_silu_fwd(x, w, b)
@@ -253,15 +213,7 @@ class CausalConvSilu:
     def checked(self, x: Tensor, w: Tensor, b: Tensor) -> Tuple[int, int]:
         """``card_checks`` of the operands, made once a layout (their
         shapes, strides, types and devices)."""
-        key = tuple((t.shape, t.stride(), t.dtype, t.device)
-                    for t in (x, w, b))
-        hit = self._layouts.get(key)
-        if hit is None:
-            hit = card_checks(x, w, b)
-            if len(self._layouts) >= MAX_LAYOUTS:
-                self._layouts.clear()
-            self._layouts[key] = hit
-        return hit
+        return self._layouts(card_checks, (x, w, b))
 
     def silu_table(self, x: Tensor) -> Optional[int]:
         """The address of SiLU's table for a forward on x: for bf16 x, SiLU's
@@ -274,26 +226,15 @@ class CausalConvSilu:
         if table is None:
             table = torch.empty(1 << 16, dtype=torch.bfloat16,
                                 device=x.device)
-            with _on(x.device):
+            with on(x.device):
                 stream = torch.cuda.current_stream()
-                code = self.library().k5_silu_table(table.data_ptr(),
-                                                    stream.cuda_stream)
-                if code != 0:
-                    raise RuntimeError(f"K5's SiLU table on {x.device} "
-                                       f"failed: error {code}")
+                self.check(self.library().k5_silu_table(
+                    table.data_ptr(), stream.cuda_stream),
+                    lambda: f"SiLU table on {x.device}")
                 # made once: a call on any later stream reads it finished
                 stream.synchronize()
             self._tables[x.device] = table
         return table.data_ptr()
-
-    def _check(self, code: int, direction: str, x: Tensor) -> None:
-        if code != 0:
-            msg = self.library().k5_error_string(code).decode()
-            raise RuntimeError(f"K5 ({direction}) launch on "
-                               f"{tuple(x.shape)} {x.dtype} failed: error "
-                               f"{code} ({msg})")
-        self.launches += 1
-        self.launches_by_direction[direction] += 1
 
     def _forward(self, x: Tensor, w: Tensor, b: Tensor) -> Tensor:
         """The forward op on tensors with storage."""
@@ -306,12 +247,13 @@ class CausalConvSilu:
         vec = vector("forward", x.dtype, C, (x, out), (sb, ss))
         lib = self.library()
         silu = self.silu_table(x)
-        with _on(x.device):
+        with on(x.device):
             code = lib.k5_conv_fwd(
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
                 silu, B, S, C, W, sb, ss, DTYPE_CODES[x.dtype], vec,
                 torch.cuda.current_stream().cuda_stream)
-        self._check(code, "forward", x)
+        self.launched(code, lambda: f"(forward) launch on {tuple(x.shape)} "
+                      f"{x.dtype}", "forward")
         return out
 
     def _backward(self, g: Tensor, x: Tensor, w: Tensor, b: Tensor
@@ -330,7 +272,7 @@ class CausalConvSilu:
         vec = vector("backward", x.dtype, C, (x, g, dx), (sb, ss))
         lib = self.library()
         t = DTYPE_CODES[x.dtype]
-        with _on(x.device):
+        with on(x.device):
             floats = lib.k5_scratch_floats(B, S, C, W, t, vec)
             if floats <= 0:
                 raise RuntimeError(f"K5's backward on {tuple(x.shape)} "
@@ -341,7 +283,8 @@ class CausalConvSilu:
                 dx.data_ptr(), dw.data_ptr(), db.data_ptr(), part.data_ptr(),
                 B, S, C, W, sb, ss, t, vec,
                 torch.cuda.current_stream().cuda_stream)
-        self._check(code, "backward", x)
+        self.launched(code, lambda: f"(backward) launch on "
+                      f"{tuple(x.shape)} {x.dtype}", "backward")
         return [dx, dw, db]
 
 

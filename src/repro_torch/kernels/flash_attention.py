@@ -32,7 +32,7 @@ before any launch:
   (two q heads of one kv head per block when H/KV is even, so they share
   every K and V tile; else 128 rows of one head).  Its operands must suit
   TMA: a 16-byte-aligned base and 16-byte-multiple strides
-  (``tma_strides`` checks them and raises ``ValueError``).
+  (``common.tma_strides`` checks them and raises ``ValueError``).
 * float32 at any D = Dv, and bfloat16 with D = Dv in (16, 32), run
   ``"simt"``: fp32 FMAs on the CUDA cores.  float32 must meet the
   reference's 2e-5, which the tensor cores (TF32 for fp32 inputs, about 3
@@ -46,10 +46,12 @@ variant raises; nothing retries on the other or on the plain version.
 variant's, and ``launches_by_head_dim`` each head dim's (D).
 
 The kernels replace the JAX reference's Pallas TPU kernel
-``repro/kernels/flash_attention.py::_kernel``.  The bound on an H100 is
-operations (``bound_ms``): 2 (D + Dv) FLOPs per unmasked (q, k) pair and
-head at the dense tensor-core rate of the input type, against the bytes of
-q, k, v, the output and lse at 3.35 TB/s.  The library call that computes
+``repro/kernels/flash_attention.py::_kernel``.  The op's FLOPs are
+``fwd_flops``: 2 (D + Dv) per unmasked (q, k) pair and head, which
+``launch.step_cost`` counts it by (``common.OP_FLOPS``).  The bound on an
+H100 is operations (``bound_ms``): those FLOPs at the dense tensor-core
+rate of the input type, against the bytes of q, k, v, the output and lse
+at 3.35 TB/s.  The library call that computes
 the same function is ``torch.nn.attention.flex_attention`` under
 ``torch.compile`` with a tanh ``score_mod`` and a causal/window block mask;
 with softcap 0, ``torch.nn.functional.scaled_dot_product_attention`` with
@@ -58,15 +60,16 @@ the same mask is another (at MLA's head dims, with ``is_causal``).
 """
 from __future__ import annotations
 
-import ctypes
 import math
-from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import (DTYPE_CODES, F32, HBM_BYTES_PER_S, I,
+                                        LL, OP_FLOPS, P, PEAK_FLOPS, Kernel,
+                                        tma_layout, tma_strides)
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 NEG_INF = -1.0e30
@@ -80,12 +83,6 @@ WGMMA_HEAD_DIMS = (64, 112, 128, 224, 256)
 #: materialized attention (deepseek-v2: 128 nope + 64 rope, v 128)
 MLA_HEAD_DIMS = (192, 128)
 VARIANTS = ("wgmma", "simt")
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-#: H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, fp32 on
-#: the CUDA cores, device memory
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-HBM_BYTES_PER_S = 3.35e12
 
 
 def unmasked_pairs(Sq: int, Skv: int, causal: bool, window: int,
@@ -98,6 +95,15 @@ def unmasked_pairs(Sq: int, Skv: int, causal: bool, window: int,
     lo = np.maximum(0, qpos - window + 1) if window else np.zeros(Sq,
                                                                   np.int64)
     return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def fwd_flops(q, k, v, causal: bool, window: int, softcap: float,
+              scale: float, q_offset: int, kv_len: Optional[int]) -> float:
+    """The FLOPs of a ``repro_torch::flash_attention_fwd`` call, from its
+    arguments: 2 (D + Dv) per unmasked pair and head (Q K^T and P V)."""
+    B, Sq, H, D = q.shape
+    return 2.0 * (D + v.shape[-1]) * B * H * unmasked_pairs(
+        Sq, k.shape[1], causal, window, q_offset, kv_len)
 
 
 def bound_ms(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
@@ -141,45 +147,6 @@ def variant_for(dtype: torch.dtype, D: int, Dv: Optional[int] = None
                          f"Dv) = {MLA_HEAD_DIMS}; got ({D}, {D})")
     return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS \
         else "simt"
-
-
-def tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
-    """The (batch, seq, head) strides, in elements, by which the wgmma
-    variant's TMA descriptors read a ``(B, S, heads, D)`` operand: its own,
-    except that a dimension of size 1 gets the stride of a dense layout
-    (its stride is never used, and TMA takes none that is not a multiple of
-    16 bytes).  Raises ``ValueError`` unless the head dim is contiguous,
-    the base is 16-byte aligned and every other stride is a positive
-    multiple of 16 bytes below 2^40."""
-    if t.dim() == 4 and t.stride(3) == 1 and t.data_ptr() % 16:
-        raise ValueError(f"TMA needs a 16-byte-aligned base, got address "
-                         f"{t.data_ptr():#x}")
-    return tma_layout(t)
-
-
-def tma_layout(t: torch.Tensor) -> Tuple[int, int, int]:
-    """``tma_strides`` without the base address: what a tensor with no
-    storage (a dry run's) can be checked for."""
-    if t.dim() != 4 or t.stride(3) != 1:
-        raise ValueError("TMA reads (B, S, heads, D) with D contiguous")
-    size = t.element_size()
-    strides = [0, 0, 0]
-    inner, extent = 1, t.shape[3]
-    for dim in (2, 1, 0):
-        st = t.stride(dim) if t.shape[dim] > 1 else inner * extent
-        if st <= 0 or (st * size) % 16 or st * size >= 1 << 40:
-            raise ValueError(f"TMA needs strides that are positive "
-                             f"multiples of 16 bytes, got stride {st} "
-                             f"elements of {size} bytes in dim {dim}")
-        strides[dim] = st
-        inner, extent = st, t.shape[dim]
-    return strides[0], strides[1], strides[2]
-
-
-def build() -> Path:
-    """Compile the CUDA source unless built already; returns the library
-    (``repro_torch.kernels._build``)."""
-    return _build.build(SOURCE, "k2_flash_attention")
 
 
 def _mask(Sq: int, Skv: int, causal: bool, window: int, q_offset: int,
@@ -227,41 +194,21 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
             lse.reshape(B, Sq, H).contiguous())
 
 
-class FlashAttention:
+class FlashAttention(Kernel):
     """The K2 wrapper.  ``launches`` counts kernel launches,
     ``launches_by_variant`` those of each variant and
     ``launches_by_head_dim`` those of each head dim D (plain integers,
     never incremented on the CPU path)."""
 
-    def __init__(self):
-        self.reset_counts()
-        self._lib: Optional[ctypes.CDLL] = None
-
-    def reset_counts(self) -> None:
-        self.launches = 0
-        self.launches_by_variant = dict.fromkeys(VARIANTS, 0)
-        self.launches_by_head_dim = dict.fromkeys(
-            sorted(HEAD_DIMS + MLA_HEAD_DIMS[:1]), 0)
-
-    def library(self) -> ctypes.CDLL:
-        """Build (at first use) and load the kernel's shared library."""
-        if self._lib is None:
-            lib = ctypes.CDLL(str(build()))
-            ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-            lib.k2_flash_attention.argtypes = (
-                [p] * 5 + [i] * 6 + [ll] * 12
-                + [i, i, ctypes.c_float, ctypes.c_float, i, i, i, p])
-            lib.k2_flash_attention.restype = ctypes.c_int
-            lib.k2_flash_attention_wgmma.argtypes = (
-                [p] * 5 + [i] * 7 + [ll] * 12
-                + [i, i, ctypes.c_float, ctypes.c_float, i, i, p])
-            lib.k2_flash_attention_wgmma.restype = ctypes.c_int
-            lib.k2_smem_bytes.argtypes = [i, i, i]
-            lib.k2_smem_bytes.restype = ll
-            lib.k2_error_string.argtypes = [i]
-            lib.k2_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+    NAME, SOURCE = "K2", SOURCE
+    SIGNATURES = {
+        "k2_flash_attention": ([P] * 5 + [I] * 6 + [LL] * 12
+                               + [I, I, F32, F32, I, I, I, P], I),
+        "k2_flash_attention_wgmma": ([P] * 5 + [I] * 7 + [LL] * 12
+                                     + [I, I, F32, F32, I, I, P], I),
+        "k2_smem_bytes": ([I, I, I], LL)}
+    COUNTS = {"variant": VARIANTS,
+              "head_dim": sorted(HEAD_DIMS + MLA_HEAD_DIMS[:1])}
 
     def smem_bytes(self, dtype: torch.dtype, D: int,
                    Dv: Optional[int] = None) -> int:
@@ -309,15 +256,9 @@ class FlashAttention:
             else:
                 code = lib.k2_flash_attention(*args, DTYPE_CODES[q.dtype],
                                               stream)
-        if code != 0:
-            msg = lib.k2_error_string(code).decode()
-            raise RuntimeError(f"K2 ({variant}) launch on q {tuple(q.shape)} "
-                               f"k {tuple(k.shape)} v {tuple(v.shape)} "
-                               f"{q.dtype} failed: error "
-                               f"{code} ({msg})")
-        self.launches += 1
-        self.launches_by_variant[variant] += 1
-        self.launches_by_head_dim[D] += 1
+        self.launched(code, lambda: f"({variant}) launch on q "
+                      f"{tuple(q.shape)} k {tuple(k.shape)} v "
+                      f"{tuple(v.shape)} {q.dtype}", variant, D)
         return out, lse
 
 
@@ -378,4 +319,5 @@ def _flash_attention_fwd_fake(q, k, v, causal, window, softcap, scale,
             q.new_empty((B, Sq, H), dtype=torch.float32))
 
 
+OP_FLOPS["flash_attention_fwd"] = ("flash_attention", fwd_flops)
 flash_attention = FlashAttention()

@@ -33,19 +33,19 @@ bytes: ``E*n*4`` read once and ``E*3*8`` written, at 3.35 TB/s
 library yardstick.
 
 The CUDA source is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface at first use (``kernels/_build.py``) and
-loaded with ``ctypes``.
+library with a plain C interface at first use and loaded with ``ctypes``
+(``kernels.common.Kernel``).
 """
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch.core.patterns import MASS_FRACTION
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import F64, HBM_BYTES_PER_S, I, LL, P, Kernel
 
 SOURCE = _build.CSRC / "pattern_summary.cu"
 
@@ -57,9 +57,6 @@ WARP_MAX_N = 32 * LANE_SAMPLES[-1]
 #: bytes of the block variant's scratch per sample of a block's row: f64
 #: inclusive and exclusive prefix sums and an int position (kEntryBytes)
 ENTRY_BYTES = 20
-
-#: H100 SXM device-memory rate (NVIDIA data sheet), for ``bound_ms``
-HBM_BYTES_PER_S = 3.35e12
 
 
 def bound_ms(E: int, n: int) -> float:
@@ -91,47 +88,20 @@ def block_grid(E: int, sms: int) -> int:
     return min(E, 2 * sms)
 
 
-def build() -> Path:
-    """Compile the CUDA source unless built already; returns the library
-    (``repro_torch.kernels._build``)."""
-    return _build.build(SOURCE, "k1_pattern_summary")
-
-
-class PatternSummary:
+class PatternSummary(Kernel):
     """The K1 wrapper.  ``launches`` counts calls that launched K1 and
     ``launches_by_variant`` those of each variant (plain integers, never
     incremented on the CPU path)."""
 
+    NAME, SOURCE = "K1", SOURCE
+    SIGNATURES = {"k1_warp": ([P, P, LL, I, F64, I, P, P], I),
+                  "k1_block": ([P, P, LL, I, F64, I, I, P, P], I),
+                  "k1_stage_limit": ([ctypes.POINTER(I)], I)}
+    COUNTS = {"variant": VARIANTS}
+
     def __init__(self):
-        self.reset_counts()
-        self._lib: Optional[ctypes.CDLL] = None
+        super().__init__()
         self._stage_limit: Dict[int, int] = {}
-
-    def reset_counts(self) -> None:
-        self.launches = 0
-        self.launches_by_variant = dict.fromkeys(VARIANTS, 0)
-
-    def library(self) -> ctypes.CDLL:
-        """Build (at first use) and load the kernels' shared library."""
-        if self._lib is None:
-            lib = ctypes.CDLL(str(build()))
-            ll, i, p, d = (ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_double)
-            lib.k1_warp.argtypes = [p, p, ll, i, d, i, p, p]
-            lib.k1_warp.restype = i
-            lib.k1_block.argtypes = [p, p, ll, i, d, i, i, p, p]
-            lib.k1_block.restype = i
-            lib.k1_stage_limit.argtypes = [ctypes.POINTER(i)]
-            lib.k1_stage_limit.restype = i
-            lib.k1_error_string.argtypes = [i]
-            lib.k1_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
-
-    def _check(self, code: int, what: str) -> None:
-        if code != 0:
-            msg = self.library().k1_error_string(code).decode()
-            raise RuntimeError(f"K1 {what} failed: CUDA error {code} ({msg})")
 
     def stage_limit(self, device: torch.device) -> int:
         """Longest row, in samples, the block variant stages in shared
@@ -141,8 +111,8 @@ class PatternSummary:
         if idx not in self._stage_limit:
             out = ctypes.c_int(0)
             with torch.cuda.device(idx):
-                self._check(self.library().k1_stage_limit(ctypes.byref(out)),
-                            "stage-limit query")
+                self.check(self.library().k1_stage_limit(ctypes.byref(out)),
+                           lambda: "stage-limit query")
             self._stage_limit[idx] = out.value
         return self._stage_limit[idx]
 
@@ -189,9 +159,7 @@ class PatternSummary:
                                     MASS_FRACTION,
                                     int(n <= self.stage_limit(u.device)),
                                     grid, scratch.data_ptr(), stream)
-        self._check(code, f"{chosen} launch on ({E}, {n})")
-        self.launches += 1
-        self.launches_by_variant[chosen] += 1
+        self.launched(code, lambda: f"{chosen} launch on ({E}, {n})", chosen)
         return out
 
 

@@ -28,21 +28,18 @@ wrapper allocates, then a pass in a fixed order).  Both directions run
 behind custom ops (``repro_torch::rms_norm_fwd`` / ``_bwd``) whose fake
 implementations serve a dry run's tensors.  ``launch.step_cost.count_step``
 counts each op as the one op it is: no FLOPs, the bytes of its tensor
-arguments and results.  (Not through ``kernel_call``: on the card autograd
-runs the backward on its device thread, which ``kernel_call``'s
-thread-local count does not see, while the dispatch mode that counts ops
-follows autograd there; so the count is the same on the CPU, on the card
-and under a fake mode.)
+arguments and results.
 
-Who takes it is one rule, ``takes(x)``: a tensor on a CUDA device that is
-not a DTensor.  ``models.layers.apply_norm`` and ``models.ssm.gated_norm``
-run the composed ops for every other tensor, and those ops are the plain
-versions below (``rms_norm_reference``, ``gate``), so the CPU computes
-exactly what it computed before (every CPU test against the JAX package
-sees the same arithmetic), and so does a mesh (DTensor has no sharding
-rule for these ops; its norms sit up to one bf16 step from K4's).  On the
-card a tensor K4 does not take (another type, a layout whose rows share no
-stride, a row wider than its shared memory) raises; nothing falls back.
+Who takes it is one rule, ``takes(x)`` (``common.takes``): a tensor on a
+CUDA device that is not a DTensor.  ``models.layers.apply_norm`` and
+``models.ssm.gated_norm`` run the composed ops for every other tensor, and
+those ops are the plain versions below (``rms_norm_reference``, ``gate``),
+so the CPU computes exactly what it computed before (every CPU test
+against the JAX package sees the same arithmetic), and so does a mesh
+(DTensor has no sharding rule for these ops; its norms sit up to one bf16
+step from K4's).  On the card a tensor K4 does not take (another type, a
+layout whose rows share no stride, a row wider than its shared memory)
+raises; nothing falls back.
 The functions and their custom ops run on CPU tensors too, through the
 plain versions (``rms_norm_reference``, ``gated_rms_norm_reference`` and
 their backward formulas), for the tests.
@@ -50,29 +47,26 @@ their backward formulas), for the tests.
 Replaces no TPU kernel: the JAX reference leaves its norms to XLA.  K4 was
 added to keep the norms' f32 copies out of device memory (about 178 MB a
 mamba2-2.7b layer saved for the backward).  Bound on an H100: bytes
-(``bound_ms``): its inputs read once and its outputs written once at
-3.35 TB/s.  ``launches`` counts calls that launched K4 (a forward or a
-backward), ``launches_by_variant`` each variant's and
+(``bound_ms``, ``common.bound_ms``): its inputs read once and its outputs
+written once at 3.35 TB/s.  ``launches`` counts calls that launched K4 (a
+forward or a backward), ``launches_by_variant`` each variant's and
 ``launches_by_direction`` each direction's; none on the CPU path.
 """
 from __future__ import annotations
 
-import contextlib
-import ctypes
 import math
-from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils._python_dispatch import _get_current_dispatch_mode
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, common
+from repro_torch.kernels.common import (DTYPE_CODES, F32, I, LL, P, Kernel,
+                                        Layouts, on, ptr, unwatched)
 
 Tensor = torch.Tensor
 
 SOURCE = _build.CSRC / "rms_norm.cu"
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("plain", "gated")
 DIRECTIONS = ("forward", "backward")
 
@@ -83,17 +77,9 @@ MAX_SMEM_BYTES = 232448
 WARPS = 8
 #: an access of 16 bytes a thread
 VECTOR_BYTES = 16
-#: layouts whose checks a wrapper keeps (``RMSNorm.checked``)
-MAX_LAYOUTS = 256
 
-#: H100 SXM device memory (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12
-
-
-def takes(x: Tensor) -> bool:
-    """Whether the models route ``x`` to K4: a tensor on a CUDA device
-    (a dry run's fake ones included) that is not a DTensor."""
-    return x.device.type == "cuda" and type(x).__name__ != "DTensor"
+#: who the models route to K4, and the bound of a call
+takes, bound_ms = common.takes, common.bound_ms
 
 
 def max_width(backward: bool, gated: bool) -> int:
@@ -330,55 +316,25 @@ def _vec(tensors: Sequence[Tensor], strides: Sequence[int],
     return v if aligned else 1
 
 
-def bound_ms(tensors: Sequence[Tensor]) -> float:
-    """Least time an H100 could take for a call that reads or writes
-    ``tensors`` once each (its inputs and outputs), in ms."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    return nbytes / HBM_BYTES_PER_S * 1e3
-
-
-def build() -> Path:
-    """Compile the CUDA source unless built already; returns the library
-    (``repro_torch.kernels._build``)."""
-    return _build.build(SOURCE, "k4_rms_norm")
-
-
-class RMSNorm:
+class RMSNorm(Kernel):
     """The K4 wrapper.  Calling it runs the plain variant's autograd
     function, ``gated`` the gated one's; ``forward`` and ``backward`` are
     the two directions alone (the custom ops).  ``launches``,
     ``launches_by_variant`` and ``launches_by_direction`` are plain
     integers, never incremented on the CPU path."""
 
+    NAME, SOURCE = "K4", SOURCE
+    SIGNATURES = {
+        "k4_rms_fwd": ([P] * 7 + [LL, I, I, I, LL, LL, LL, F32] + [I] * 4
+                       + [P], I),
+        "k4_rms_bwd": ([P] * 13 + [LL, I, I, I, LL, LL, LL] + [I] * 4 + [P],
+                       I),
+        "k4_scratch_floats": ([LL, I, I], LL)}
+    COUNTS = {"variant": VARIANTS, "direction": DIRECTIONS}
+
     def __init__(self):
-        self.reset_counts()
-        self._lib: Optional[ctypes.CDLL] = None
-        #: ``card_checks``' result by the operands' layouts
-        self._layouts: dict = {}
-
-    def reset_counts(self) -> None:
-        self.launches = 0
-        self.launches_by_variant = dict.fromkeys(VARIANTS, 0)
-        self.launches_by_direction = dict.fromkeys(DIRECTIONS, 0)
-
-    def library(self) -> ctypes.CDLL:
-        """Build (at first use) and load the kernel's shared library."""
-        if self._lib is None:
-            lib = ctypes.CDLL(str(build()))
-            ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-            lib.k4_rms_fwd.argtypes = (
-                [p] * 7 + [ll, i, i, i, ll, ll, ll, ctypes.c_float]
-                + [i] * 4 + [p])
-            lib.k4_rms_fwd.restype = i
-            lib.k4_rms_bwd.argtypes = (
-                [p] * 13 + [ll, i, i, i, ll, ll, ll] + [i] * 4 + [p])
-            lib.k4_rms_bwd.restype = i
-            lib.k4_scratch_floats.argtypes = [ll, i, i]
-            lib.k4_scratch_floats.restype = ll
-            lib.k4_error_string.argtypes = [i]
-            lib.k4_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+        super().__init__()
+        self._layouts = Layouts()
 
     def __call__(self, x: Tensor, scale: Tensor, eps: float) -> Tensor:
         return _RMSNorm.apply(x, scale, eps)
@@ -391,7 +347,7 @@ class RMSNorm:
                 groups: int = 1) -> Tuple[Tensor, Tensor]:
         """(out, rstd): the kernel on CUDA tensors, the plain version on CPU
         ones, through the custom op ``repro_torch::rms_norm_fwd`` wherever
-        the dispatcher has a reader (``unwatched``)."""
+        the dispatcher has a reader (``common.unwatched``)."""
         if unwatched((x, scale, xs, D, z)):
             return self._forward(x, scale, eps, xs, D, z, groups)
         return torch.ops.repro_torch.rms_norm_fwd(x, scale, eps, xs, D, z,
@@ -406,29 +362,12 @@ class RMSNorm:
         return torch.ops.repro_torch.rms_norm_bwd(g, x, scale, rstd, xs, D,
                                                   z, groups)
 
-    def _check(self, code: int, direction: str, variant: str, x) -> None:
-        if code != 0:
-            msg = self.library().k4_error_string(code).decode()
-            raise RuntimeError(f"K4 ({variant} {direction}) launch on "
-                               f"{tuple(x.shape)} {x.dtype} failed: error "
-                               f"{code} ({msg})")
-        self.launches += 1
-        self.launches_by_variant[variant] += 1
-        self.launches_by_direction[direction] += 1
-
     def checked(self, x, scale, xs, D, z, backward: bool, groups: int = 1):
         """``card_checks`` of the operands, made once a layout (their
-        shapes, strides, types and devices, and the groups)."""
-        key = (backward, groups) + tuple(None if t is None else (
-            t.shape, t.stride(), t.dtype, t.device)
-            for t in (x, scale, xs, D, z))
-        hit = self._layouts.get(key)
-        if hit is None:
-            hit = card_checks(x, scale, xs, D, z, backward, groups)
-            if len(self._layouts) >= MAX_LAYOUTS:
-                self._layouts.clear()
-            self._layouts[key] = hit
-        return hit
+        shapes, strides, types and devices, the direction and the
+        groups)."""
+        return self._layouts(card_checks, (x, scale, xs, D, z), backward,
+                             groups)
 
     def _forward(self, x, scale, eps, xs, D, z, groups: int = 1
                  ) -> Tuple[Tensor, Tensor]:
@@ -449,14 +388,16 @@ class RMSNorm:
         rstd = torch.empty(rstd_shape(shape, groups), dtype=torch.float32,
                            device=x.device)
         lib = self.library()
-        with _on(x.device):
+        with on(x.device):
             code = lib.k4_rms_fwd(
-                x.data_ptr(), _ptr(xs), _ptr(D), _ptr(z), scale.data_ptr(),
+                x.data_ptr(), ptr(xs), ptr(D), ptr(z), scale.data_ptr(),
                 out.data_ptr(), rstd.data_ptr(), out.numel() // n, n, H,
                 groups, sx, sxs, sz, eps, DTYPE_CODES[x.dtype],
                 DTYPE_CODES[scale.dtype], vec, int(gated),
                 torch.cuda.current_stream().cuda_stream)
-        self._check(code, "forward", VARIANTS[gated], x)
+        self.launched(code, lambda: f"({VARIANTS[gated]} forward) launch on "
+                      f"{tuple(x.shape)} {x.dtype}", VARIANTS[gated],
+                      "forward")
         return out, rstd
 
     def _backward(self, g, x, scale, rstd, xs, D, z, groups: int = 1
@@ -486,9 +427,9 @@ class RMSNorm:
             dxs = torch.empty(xs.shape, dtype=x.dtype, device=x.device)
             dD = torch.empty(D.shape, dtype=torch.float32, device=x.device)
             dz = torch.empty(z.shape, dtype=x.dtype, device=x.device)
-        with _on(x.device):
+        with on(x.device):
             code = lib.k4_rms_bwd(
-                g.data_ptr(), x.data_ptr(), _ptr(xs), _ptr(D), _ptr(z),
+                g.data_ptr(), x.data_ptr(), ptr(xs), ptr(D), ptr(z),
                 scale.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
                 dxs.data_ptr() if gated else None,
                 dz.data_ptr() if gated else None, dscale.data_ptr(),
@@ -496,35 +437,10 @@ class RMSNorm:
                 H, groups, sx, sxs, sz, DTYPE_CODES[x.dtype],
                 DTYPE_CODES[scale.dtype], vec, int(gated),
                 torch.cuda.current_stream().cuda_stream)
-        self._check(code, "backward", VARIANTS[gated], x)
+        self.launched(code, lambda: f"({VARIANTS[gated]} backward) launch "
+                      f"on {tuple(x.shape)} {x.dtype}", VARIANTS[gated],
+                      "backward")
         return [dx, dxs, dD, dz, dscale] if gated else [dx, dscale]
-
-
-def unwatched(tensors: Sequence[Optional[Tensor]]) -> bool:
-    """Whether a call may skip the dispatcher: no dispatch mode is active
-    (a step count's, a fake mode's) and no operand is a tensor subclass
-    with a dispatch of its own.  Such a call runs the op's body directly,
-    which spares the custom op's host time (on an H100 host a norm's
-    forward and backward fell from ~980 to ~750 us with the checks made
-    once a layout); every other call goes through the op, whose fake
-    implementation and count those readers need."""
-    return _get_current_dispatch_mode() is None and all(
-        type(t) in _PLAIN for t in tensors if t is not None)
-
-
-_PLAIN = (torch.Tensor, torch.nn.Parameter)
-_NO_CONTEXT = contextlib.nullcontext()
-
-
-def _on(device: torch.device):
-    """A launch's device context: none when ``device`` is current."""
-    if device.index == torch.cuda.current_device():
-        return _NO_CONTEXT
-    return torch.cuda.device(device)
-
-
-def _ptr(t: Optional[Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
 
 
 def backward_checks(g: Tensor, rstd: Tensor, shape, device,

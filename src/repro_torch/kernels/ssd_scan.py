@@ -23,8 +23,8 @@ makes before it reads data.  The reference has no backward kernel, so the
 backward recomputes the plain version under autograd and returns the
 gradients of x, dt, A, Bm and Cm.  The plain version masks every decay
 difference before its exponential, so its gradients stay finite where the
-upper triangle would overflow.  While ``launch.step_cost`` counts a step,
-the forward counts as K3 by ``ssd_flops``, whichever path runs it.
+upper triangle would overflow.  ``launch.step_cost`` counts the op by
+``ssd_flops`` (``common.OP_FLOPS``), whichever path runs inside it.
 
 Which kernel runs is one fixed rule, ``variant_for(dtype, P, N, Q)``,
 decided before any launch:
@@ -36,7 +36,7 @@ decided before any launch:
   over (batch, head, chunk) on tensor-core tiles fed by TMA and run only an
   elementwise pass in chunk order; C B^T is computed once per group.  The
   wrapper allocates their f32 scratch (``wgmma_scratch``).  x, Bm and Cm
-  must suit TMA (``flash_attention.tma_strides`` raises ``ValueError``).
+  must suit TMA (``common.tma_strides`` raises ``ValueError``).
 * everything else, f32 at any shape among it, runs ``"simt"``: one kernel
   (``ssd_fwd``) of fp32 FMAs on the CUDA cores that carries each block's
   state slice through the chunks (``p_split_for``).  f32 must meet the
@@ -57,17 +57,16 @@ from __future__ import annotations
 
 import ctypes
 import math
-from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import tma_layout, tma_strides
-from repro_torch.launch.step_cost import kernel_call
+from repro_torch.kernels.common import (DTYPE_CODES, HBM_BYTES_PER_S, I, LL,
+                                        OP_FLOPS, P, PEAK_FLOPS, Kernel,
+                                        tma_layout, tma_strides)
 
 SOURCE = _build.CSRC / "ssd_scan.cu"
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("wgmma", "simt")
 
 #: widths of the P slice one block of the SIMT kernel owns (``dispatch`` in
@@ -77,11 +76,6 @@ P_SPLITS = (16, 32, 64)
 WGMMA_TILE = 64
 #: the longest chunk the kernel's shared-memory plan takes
 MAX_CHUNK = 1024
-
-#: H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, fp32 on
-#: the CUDA cores, device memory
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-HBM_BYTES_PER_S = 3.35e12
 
 
 def ssd_flops(x: torch.Tensor, Bm: torch.Tensor, chunk: int) -> float:
@@ -221,46 +215,19 @@ def wgmma_scratch(B: int, S: int, H: int, P: int, G: int, N: int, Q: int,
                  in zip(buf.split(sizes), shapes))
 
 
-def build() -> Path:
-    """Compile the CUDA source (both variants) unless built already;
-    returns the library (``repro_torch.kernels._build``)."""
-    return _build.build(SOURCE, "k3_ssd_scan")
-
-
-class SSDScan:
+class SSDScan(Kernel):
     """The K3 wrapper.  ``launches`` counts calls that launched K3 and
     ``launches_by_variant`` those of each variant (plain integers, never
     incremented on the CPU path).  Calling it runs the autograd function;
     ``run`` is the forward alone."""
 
-    def __init__(self):
-        self.reset_counts()
-        self._lib: Optional[ctypes.CDLL] = None
-
-    def reset_counts(self) -> None:
-        self.launches = 0
-        self.launches_by_variant = dict.fromkeys(VARIANTS, 0)
-
-    def library(self) -> ctypes.CDLL:
-        """Build (at first use) and load the kernels' shared library."""
-        if self._lib is None:
-            lib = ctypes.CDLL(str(build()))
-            ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-            lib.k3_ssd_scan.argtypes = (
-                [p] * 6 + [i] * 7 + [ll] * 12 + [i, i, p])
-            lib.k3_ssd_scan.restype = ctypes.c_int
-            lib.k3_ssd_scan_wgmma.argtypes = (
-                [p] * 9 + [i] * 7 + [ll] * 12 + [p])
-            lib.k3_ssd_scan_wgmma.restype = ctypes.c_int
-            lib.k3_smem_bytes.argtypes = [i, i, i]
-            lib.k3_smem_bytes.restype = ll
-            lib.k3_wgmma_smem_bytes.argtypes = [i, i,
-                                                ctypes.POINTER(ll)]
-            lib.k3_wgmma_smem_bytes.restype = None
-            lib.k3_error_string.argtypes = [i]
-            lib.k3_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+    NAME, SOURCE = "K3", SOURCE
+    SIGNATURES = {
+        "k3_ssd_scan": ([P] * 6 + [I] * 7 + [LL] * 12 + [I, I, P], I),
+        "k3_ssd_scan_wgmma": ([P] * 9 + [I] * 7 + [LL] * 12 + [P], I),
+        "k3_smem_bytes": ([I, I, I], LL),
+        "k3_wgmma_smem_bytes": ([I, I, ctypes.POINTER(LL)], None)}
+    COUNTS = {"variant": VARIANTS}
 
     def smem_bytes(self, N: int, Q: int, P: int) -> int:
         """Dynamic shared memory of one block of the SIMT kernel, in bytes,
@@ -270,7 +237,7 @@ class SSDScan:
     def wgmma_smem_bytes(self, N: int, Q: int) -> Tuple[int, int, int]:
         """Dynamic shared memory of one block of the wgmma variant's
         ``ssd_fwd_state``, ``ssd_fwd_cb`` and ``ssd_fwd_scan``, in bytes."""
-        out = (ctypes.c_longlong * 3)()
+        out = (LL * 3)()
         self.library().k3_wgmma_smem_bytes(N, Q, out)
         return tuple(int(v) for v in out)
 
@@ -308,14 +275,9 @@ class SSDScan:
                     Cm.data_ptr(), y.data_ptr(), B, S, H, P, G, N, Q,
                     *strides, *y.stride()[:3], p_split_for(P),
                     DTYPE_CODES[x.dtype], stream)
-        if code != 0:
-            msg = lib.k3_error_string(code).decode()
-            raise RuntimeError(f"K3 ({variant}) launch on x "
-                               f"{tuple(x.shape)} Bm {tuple(Bm.shape)} "
-                               f"{x.dtype} chunk {Q} failed: error {code} "
-                               f"({msg})")
-        self.launches += 1
-        self.launches_by_variant[variant] += 1
+        self.launched(code, lambda: f"({variant}) launch on x "
+                      f"{tuple(x.shape)} Bm {tuple(Bm.shape)} {x.dtype} "
+                      f"chunk {Q}", variant)
         return y
 
     def __call__(self, x, dt, A, Bm, Cm, chunk: int = 128) -> torch.Tensor:
@@ -394,16 +356,17 @@ def _ssd_scan_fwd_fake(x, dt, A, Bm, Cm, chunk):
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
+OP_FLOPS["ssd_scan_fwd"] = ("ssd_scan", lambda x, dt, A, Bm, Cm, chunk:
+                            ssd_flops(x, Bm, chunk))
+
+
 class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk: int):
         ctx.save_for_backward(x, dt, A, Bm, Cm)
         ctx.chunk = chunk
-        return kernel_call("ssd_scan",
-                           lambda: ssd_scan.run(x, dt, A, Bm, Cm, chunk),
-                           lambda: ssd_flops(x, Bm, chunk),
-                           (x, dt, A, Bm, Cm))
+        return ssd_scan.run(x, dt, A, Bm, Cm, chunk)
 
     @staticmethod
     def backward(ctx, dy):

@@ -12,18 +12,23 @@ here ``launch.step_cost.count_step`` counts them while the step runs and
 ``parse_collectives`` has no counterpart.
 
 Hardware constants: the NVIDIA H100 SXM5 80GB data sheet (the card
-``nvidia-smi`` names "NVIDIA H100 80GB HBM3", at its 700 W power limit):
-989 TFLOP/s dense bf16 tensor-core math, 3.35 TB/s HBM3, and 450 GB/s
-NVLink per direction.  They are data-sheet figures, not measurements.
+``nvidia-smi`` names "NVIDIA H100 80GB HBM3", at its 700 W power limit),
+as ``kernels.common`` holds it for the whole port: 989 TFLOP/s dense bf16
+tensor-core math, 3.35 TB/s HBM3, and 450 GB/s NVLink per direction.
+They are data-sheet figures, not measurements.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict
 
-PEAK_FLOPS = 989e12        # bf16 dense, per card
-HBM_BW = 3.35e12           # bytes/s per card
-ICI_BW = 450e9             # bytes/s NVLink, per direction
+import torch
+
+from repro_torch.kernels import common
+
+PEAK_FLOPS = common.PEAK_FLOPS[torch.bfloat16]   # dense, per card
+HBM_BW = common.HBM_BYTES_PER_S                 # bytes/s per card
+ICI_BW = common.NVLINK_BYTES_PER_S              # bytes/s, per direction
 
 
 def ring_traffic(op: str, size: float, n: int) -> float:

@@ -8,7 +8,9 @@ compiled module to read).
 
 * FLOPs of ``mm``, ``bmm``, ``addmm``, ``baddbmm`` (``2 * numel(result) *
   K``) and ``convolution`` (``2 * numel(result) * kernel_spatial * Cin /
-  groups``), the reference's formulas; elementwise ops count none;
+  groups``), the reference's formulas, and of the hand kernels' custom
+  ops by the formula each kernel module gives (``kernels.common.OP_FLOPS``);
+  elementwise ops count none;
 * bytes: every op's tensor operands plus its results.  Views and
   allocations count nothing, as the reference skips ``parameter``,
   ``constant``, ``bitcast`` and the rest;
@@ -20,27 +22,24 @@ Under a mesh the count is per device, as the reference's SPMD module is:
 an op on DTensors is counted by the ops it runs on the local shards and
 the collectives it issues.
 
-The two hand kernels, K2 (``models.attention_core``) and K3
-(``kernels.ssd_scan``), are autograd functions whose forwards call a
-compiled library on the card, which no dispatch mode sees, and their plain
-versions on the CPU, whose matrix products it would.  So their forwards
-run through ``kernel_call``: while a count runs, nothing dispatched inside
-is counted, and the call adds its kernel's own FLOP formula
-(``kernels.flash_attention.unmasked_pairs`` x 2 (D + Dv) x heads, and
-``kernels.ssd_scan.ssd_flops``) and the bytes of its inputs and outputs.
-Their backwards run as plain torch on both devices and are counted as
-dispatched.  The count is therefore the same on the CPU and the card.
-K4 (``kernels.rms_norm``) and K5 (``kernels.causal_conv``) compute no
-products: their two directions are custom ops that this mode counts as the
-single ops they are (no FLOPs, the bytes of their tensor arguments and
-results) on whichever thread autograd runs them; the CPU counts the same
-only where it takes them too (the models route CPU tensors to the composed
-norms and convs, ``K4.takes``, ``K5.takes``).
+Every hand kernel runs behind custom ops (``repro_torch::*``), and this
+mode counts each call as the one op it is: the FLOPs its kernel module
+gives the op (K2's forward ``kernels.flash_attention.fwd_flops``, 2 (D +
+Dv) per unmasked pair and head; K3's ``kernels.ssd_scan.ssd_flops``; none
+for K4's and K5's, which compute no products) and the bytes of its tensor
+arguments and results, filed under the kernel's name (``flash_attention``,
+``ssd_scan``, ``rms_norm_fwd``, ...).  A mode does not see the ops inside
+a custom op's body, so the compiled library on the card and the plain
+version on the CPU count alike, on whichever thread autograd runs the op.
+K2's and K3's backwards run as plain torch on both devices and are counted
+as dispatched.  The CPU counts K4 and K5 only where it takes them too (the
+models route CPU tensors to the composed norms and convs, ``K4.takes``,
+``K5.takes``).
 
 On real tensors a count runs the step: one extra forward and backward.
 Under a ``FakeTensorMode`` (``launch.dryrun``) nothing runs: the ops whose
-fake tensors belong to that mode count as a real step's would, K2 and K3
-reach the fake implementations of their custom ops and count by formula,
+fake tensors belong to that mode count as a real step's would, the
+kernels' custom ops reach their fake implementations and count alike,
 and DTensor's bookkeeping (``marking_propagation``) counts nothing.  On
 one device the two counts are equal.
 """
@@ -59,6 +58,7 @@ from torch.distributed.distributed_c10d import _resolve_process_group
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
+from repro_torch.kernels.common import OP_FLOPS
 from repro_torch.launch.analysis import ring_traffic
 
 aten = torch.ops.aten
@@ -166,7 +166,6 @@ class _Counter(TorchDispatchMode):
     def __init__(self, fake_mode=None):
         super().__init__()
         self.cost = Cost()
-        self.paused = 0
         #: the fake mode the step runs under (a dry run's), whose tensors
         #: count as a real step's do; None for a step on real tensors
         self.fake_mode = fake_mode
@@ -180,7 +179,7 @@ class _Counter(TorchDispatchMode):
             # issues, i.e. what this device does
             return NotImplemented
         out = func(*args, **kwargs)
-        if self.paused or propagating() or any(
+        if propagating() or any(
                 isinstance(t, FakeTensor) and t.fake_mode is not self.fake_mode
                 for t in seen + _tensors(out)):
             # DTensor's sharding propagation runs ops on fake tensors: of
@@ -205,22 +204,19 @@ class _Counter(TorchDispatchMode):
                 or func.overloadpacket in _FREE:
             return out
         c = self.cost
+        fl = None
         if func.overloadpacket in _FLOP_OPS:
             fl = _dot_flops(func, args, out)
+        elif ns == "repro_torch" and name in OP_FLOPS:
+            name, formula = OP_FLOPS[name]
+            fl = float(formula(*args, **kwargs))
+        if fl is not None:
             c.flops += fl
             c._dadd(c.detail_flops, name, fl)
         b = _nbytes(args) + _nbytes(kwargs) + _nbytes(out)
         c.bytes += b
         c._dadd(c.detail_bytes, name, b)
         return out
-
-    def add_kernel(self, name: str, flops: float, tensors) -> None:
-        c = self.cost
-        c.flops += flops
-        b = _nbytes(tensors)
-        c.bytes += b
-        c._dadd(c.detail_flops, name, flops)
-        c._dadd(c.detail_bytes, name, b)
 
 
 _state = threading.local()
@@ -270,24 +266,6 @@ def marking_propagation():
     finally:
         for (cls, name, _), orig in zip(patched, origs):
             setattr(cls, name, orig)
-
-
-def kernel_call(name: str, fn: Callable, flops: Callable[[], float],
-                inputs):
-    """``fn()``, the forward of a hand kernel on ``inputs``; while a count
-    runs on this thread, the call counts as ``flops()`` FLOPs and the bytes
-    of ``inputs`` and of what ``fn`` returns, and nothing ``fn`` dispatches
-    is counted (module docstring)."""
-    c = _active()
-    if c is None:
-        return fn()
-    c.paused += 1
-    try:
-        out = fn()
-    finally:
-        c.paused -= 1
-    c.add_kernel(name, float(flops()), (inputs, out))
-    return out
 
 
 def count_step(grad_step: Callable, params, batch) -> Cost:

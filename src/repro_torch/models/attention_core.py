@@ -17,8 +17,9 @@ tiles the forward itself); its loop skips (q, kv) block pairs that the
 causal mask or the window empties wholly, where the reference computes them
 and adds zeros.
 
-While ``launch.step_cost`` counts a step, the forward counts as K2 by its
-FLOP formula, whichever path runs it.
+A step count (``launch.step_cost``) counts the forward as K2's custom op,
+by the FLOP formula ``kernels.flash_attention`` gives it, whichever path
+runs inside.
 
 ``AttnSpec.folded`` (balanced causal folding) is accepted and runs the
 unfolded path.  On the TPU the fold pairs q blocks (i, NQ-1-i) so that
@@ -35,9 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 unmasked_pairs)
-from repro_torch.launch.step_cost import kernel_call
+from repro_torch.kernels.flash_attention import flash_attention
 
 Tensor = torch.Tensor
 NEG_INF = -1.0e30
@@ -137,16 +136,10 @@ class _BlockedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, spec: AttnSpec, q_offset: int,
                 kv_len: Optional[int]):
-        B, Sq, H, D = q.shape
-        out, lse = kernel_call(
-            "flash_attention",
-            lambda: flash_attention(
-                q, k, v, causal=spec.causal, window=spec.window,
-                softcap=spec.softcap, scale=spec.scale, q_offset=q_offset,
-                kv_len=kv_len, return_lse=True),
-            lambda: 2.0 * (D + v.shape[-1]) * B * H * unmasked_pairs(
-                Sq, k.shape[1], spec.causal, spec.window, q_offset, kv_len),
-            (q, k, v))
+        out, lse = flash_attention(
+            q, k, v, causal=spec.causal, window=spec.window,
+            softcap=spec.softcap, scale=spec.scale, q_offset=q_offset,
+            kv_len=kv_len, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.spec, ctx.q_offset, ctx.kv_len = spec, q_offset, kv_len
         return out

@@ -23,10 +23,10 @@ from repro.kernels import ops
 from repro.models import attention_core as RC
 
 from repro_torch.configs.registry import ARCHS
+from repro_torch.kernels.common import tma_strides
 from repro_torch.kernels.flash_attention import (bound_ms, flash_attention,
                                                  flash_attention_reference,
-                                                 tma_strides, unmasked_pairs,
-                                                 variant_for)
+                                                 unmasked_pairs, variant_for)
 from repro_torch.models import attention as A
 from repro_torch.models import attention_core as C
 

@@ -5,6 +5,7 @@ expected.  The ``gpu`` tests (a catalog scenario on the card against its
 host ``numpy`` run; a serving scenario on the card) skip without a CUDA
 device; on the card's machine:
 ``python -m pytest -q -m gpu tests/test_torch_isolation.py``."""
+import ast
 import os
 import re
 import subprocess
@@ -77,6 +78,46 @@ def test_sources_name_no_jax_or_reference_import():
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, (f, hits)
+
+
+def _imported_modules(path: Path) -> set:
+    """Every module ``path`` imports, at its top or inside a function; a
+    ``from m import n`` names both m and m.n."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+            names |= {f"{node.module}.{a.name}" for a in node.names}
+    return names
+
+
+def test_kernels_and_models_import_no_launcher():
+    """The launcher (``repro_torch.launch``: the step cost, the dry run)
+    calls the models and the kernels, never the other way round."""
+    files = sorted((SRC / "repro_torch/kernels").glob("*.py")) \
+        + sorted((SRC / "repro_torch/models").glob("*.py"))
+    assert SRC / "repro_torch/models/attention_core.py" in files
+    for f in files:
+        bad = [n for n in _imported_modules(f)
+               if n == "repro_torch.launch"
+               or n.startswith("repro_torch.launch.")]
+        assert not bad, (f, bad)
+
+
+def test_no_kernel_wrapper_imports_another():
+    """Each kernel wrapper imports the shared ``kernels.common`` and
+    ``kernels._build`` and no other wrapper."""
+    kernels = SRC / "repro_torch/kernels"
+    wrappers = {p.stem for p in kernels.glob("*.py")} - {
+        "__init__", "_build", "common"}
+    assert wrappers == {"pattern_summary", "flash_attention", "ssd_scan",
+                        "rms_norm", "causal_conv"}
+    for f in sorted(kernels.glob("*.py")):
+        used = {n.split(".")[2] for n in _imported_modules(f)
+                if n.startswith("repro_torch.kernels.")}
+        assert not (used & wrappers) - {f.stem}, (f, used)
 
 
 def test_service_without_cuda_raises_unless_cpu_is_asked(monkeypatch):

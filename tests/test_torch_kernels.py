@@ -9,10 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.common import tma_strides
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, MLA_HEAD_DIMS,
                                                  VARIANTS, flash_attention,
                                                  flash_attention_reference,
-                                                 tma_strides, variant_for)
+                                                 variant_for)
 from repro_torch.kernels.flash_attention import bound_ms as k2_bound_ms
 from repro_torch.kernels.pattern_summary import VARIANTS as K1_VARIANTS
 from repro_torch.kernels.pattern_summary import (WARP_MAX_N, block_grid,
@@ -26,7 +27,11 @@ from repro_torch.kernels.ssd_scan import VARIANTS as K3_VARIANTS
 from repro_torch.kernels.ssd_scan import (ssd_oracle, ssd_scan,
                                           ssd_scan_reference)
 from repro_torch.kernels.ssd_scan import variant_for as k3_variant_for
+from repro_torch.kernels import causal_conv as K5
+from repro_torch.kernels import flash_attention as K2
+from repro_torch.kernels import pattern_summary as K1
 from repro_torch.kernels import rms_norm as K4
+from repro_torch.kernels import ssd_scan as K3
 
 from _torch_inputs import EDGE_EXPECTED, case, edge_rows, long_row, matrices
 # autouse fixture: torch on one CPU thread
@@ -212,6 +217,52 @@ def test_library_path_changes_with_a_header(tmp_path, monkeypatch):
     assert second != first
     src.write_text('#include "sm90.cuh"\n// edited\n')
     assert _build.library_path(src, "k") not in (first, second)
+
+
+#: each wrapper, its module's instance and a launch's key of each counter
+_WRAPPERS = {
+    "K1": (K1.PatternSummary, K1.pattern_summary, {"variant": "block"}),
+    "K2": (K2.FlashAttention, K2.flash_attention,
+           {"variant": "simt", "head_dim": 224}),
+    "K3": (K3.SSDScan, K3.ssd_scan, {"variant": "wgmma"}),
+    "K4": (K4.RMSNorm, K4.rms_norm,
+           {"variant": "gated", "direction": "backward"}),
+    "K5": (K5.CausalConvSilu, K5.causal_conv_silu, {"direction": "forward"}),
+}
+
+
+def _counts(w) -> dict:
+    return {name: value if name == "launches" else dict(value)
+            for name, value in vars(w).items()
+            if name.startswith("launches")}
+
+
+@pytest.mark.parametrize("name", sorted(_WRAPPERS))
+def test_launch_check_raises_the_library_message_or_counts(name):
+    """The shared launch check (``common.Kernel.launched``) against a stub
+    library: a nonzero code raises ``RuntimeError`` naming the kernel,
+    what was launched and the library's error string, and counts nothing;
+    a zero code counts one launch in exactly the counters it names, of
+    that wrapper alone."""
+    cls, instance, by = _WRAPPERS[name]
+    w = cls()
+    w._lib = type("Stub", (), {f"{name.lower()}_error_string": staticmethod(
+        lambda code: f"stub message {code}".encode())})()
+    fresh = _counts(w)
+    others = [_counts(i) for _, i, _ in _WRAPPERS.values()]
+    assert list(by) == list(cls.COUNTS)
+    with pytest.raises(RuntimeError) as err:
+        w.launched(7, lambda: "(stub) launch on (2, 3)", *by.values())
+    assert str(err.value) == (f"{name} (stub) launch on (2, 3) failed: "
+                              "error 7 (stub message 7)")
+    assert _counts(w) == fresh
+    w.launched(0, lambda: "(stub) launch on (2, 3)", *by.values())
+    want = dict(fresh, launches=1)
+    for counter, key in by.items():
+        want[f"launches_by_{counter}"] = {**fresh[f"launches_by_{counter}"],
+                                          key: 1}
+    assert _counts(w) == want
+    assert [_counts(i) for _, i, _ in _WRAPPERS.values()] == others
 
 
 def _ssm_shape(cfg, seq: int):

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.registry import ARCHS, reduced
+from repro_torch.kernels import common
 from repro_torch.kernels import rms_norm as K4
 from repro_torch.kernels.rms_norm import (gated_rms_norm_backward_reference,
                                           gated_rms_norm_reference, rms_norm,
@@ -283,7 +284,7 @@ def test_a_call_goes_through_the_op_only_where_the_dispatcher_is_read():
             return func(*args, **(kwargs or {}))
     ins, dout = _gated_inputs(14, (1, 4), 4, 16, torch.bfloat16)
     y, xs, D, z, scale = ins
-    assert K4.unwatched([y, scale, xs, D, z])
+    assert common.unwatched([y, scale, xs, D, z])
     out, rstd = rms_norm.forward(y, scale, EPS, xs, D, z)
     grads = rms_norm.backward(dout, y, scale, rstd, xs, D, z)
     want = torch.ops.repro_torch.rms_norm_fwd(y, scale, EPS, xs, D, z)
@@ -291,13 +292,13 @@ def test_a_call_goes_through_the_op_only_where_the_dispatcher_is_read():
     want = torch.ops.repro_torch.rms_norm_bwd(dout, y, scale, rstd, xs, D, z)
     assert all(torch.equal(a, b) for a, b in zip(grads, want))
     with Seen() as mode:
-        assert not K4.unwatched([y])
+        assert not common.unwatched([y])
         out2, rstd2 = rms_norm.forward(y, scale, EPS, xs, D, z)
         rms_norm.backward(dout, y, scale, rstd2, xs, D, z)
     assert "repro_torch.rms_norm_fwd" in mode.ops
     assert "repro_torch.rms_norm_bwd" in mode.ops
     assert torch.equal(out2, out)
-    assert K4.unwatched([torch.nn.Parameter(scale)])
+    assert common.unwatched([torch.nn.Parameter(scale)])
 
 
 def test_the_card_checks_are_made_once_a_layout(monkeypatch):

@@ -110,13 +110,9 @@ def fused_source() -> Path:
 
 def wrapper(source: Path) -> K3.SSDScan:
     """An ``SSDScan`` whose library is built from ``source``."""
-    saved = K3.SOURCE
-    K3.SOURCE = source
-    try:
-        w = K3.SSDScan()
-        w.library()
-    finally:
-        K3.SOURCE = saved
+    w = K3.SSDScan()
+    w.SOURCE = source
+    w.library()
     return w
 
 
@@ -127,7 +123,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
     print(cs.gpu_line())
     kinds = {"four-pass": K3.SOURCE, "fused": fused_source()}
-    _build.build_all([(src, f"k3_ab_{k}") for k, src in kinds.items()])
+    _build.build_all([(src, f"k3_{src.stem}") for src in kinds.values()])
     runs = {k: wrapper(src) for k, src in kinds.items()}
     flush = torch.empty(cs.L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device="cuda")
