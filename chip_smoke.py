@@ -14,7 +14,9 @@ P 64/128, N and chunk multiples of 64 up to 256, and the SIMT kernel for the
 rest), K4 (``src/repro_torch/csrc/rms_norm.cu``: the RMS norm, plain and
 with mamba2's skip and gate, forward and backward) and K5
 (``src/repro_torch/csrc/causal_conv.cu``: mamba2's causal conv and SiLU,
-forward and backward) with nvcc for sm_90a,
+forward and backward) and K6 (``src/repro_torch/csrc/cross_entropy.cu``: the
+training loss head's softcap, log-sum-exp and cross-entropy, forward and
+backward) with nvcc for sm_90a,
 all at once, prints their ptxas reports and how
 many HGMMA and UTMALDG instructions K2's and K3's SASS hold, and then runs
 these phases, each checked:
@@ -43,11 +45,13 @@ these phases, each checked:
    ``scaled_dot_product_attention``; at MLA's and zamba2's shapes beside
    SDPA with ``is_causal``, naming the backend it picked;
 4. ``[step cost]``: one reduced gemma2 step's cost (``launch.step_cost``)
-   counted on the card equal to its count on the CPU; then the full
+   counted on the card (K4's and K6's ops among it) equal to its count on
+   the CPU, where the norms and the loss are routed to K4's and K6's plain
+   versions; then the full
    gemma2-2b trainer (26 layers, full width, bf16 with fp32 AdamW state)
    for 5 steps of batch 1 x 2048 tokens through
    ``Trainer.train_iteration``: 26 K2 launches a step, all of the wgmma
-   variant, finite losses.  Every trainer phase first counts its step's
+   variant, one K6 launch a step each way, finite losses.  Every trainer phase first counts its step's
    cost (FLOPs, bytes, collectives, ``gemm_frac``, the seconds the count
    took, FLOPs over ``model_flops``) and checks that each timed
    ``train.step`` holds one ``xla.gemm`` then one ``xla.other``;
@@ -91,12 +95,20 @@ these phases, each checked:
    steps), the backward the same bits three times, and ``[k5 time]``,
    each direction's device time at the main path's convs beside its bytes
    bound, the composed ops and ``F.conv1d(groups=C)`` with ``F.silu``;
+   then ``[k6 check]``, K6 (the loss head) against the composed ops and
+   autograd through them (``K6_CASES``: mamba2-2.7b's head padded as the
+   port pads it and at the published vocabulary, the published
+   Zamba2-7B's, gemma2-2b's softcap over padded columns, f32), the nll
+   within 1e-5, dh within one bf16 step, the backward the same bits three
+   times, and ``[k6 time]``, each direction's device time at the cells'
+   heads beside its bytes bound, the composed ops and ``F.cross_entropy``
+   on the f32 logits;
 7. the full mamba2-2.7b trainer (64 layers, full width, bf16 with f32
    ``A_log``/``D``/``dt_bias`` and fp32 AdamW state) for 5 steps of batch
    1 x 2048 tokens: 64 K3 launches a step, all of the wgmma variant, 129
    K4 launches a step each way (64 plain, 64 gated, the final norm), 192
-   K5 launches a step each way (xs, B and C of each layer), finite losses
-   and grad norms;
+   K5 launches a step each way (xs, B and C of each layer), one K6
+   launch a step each way, finite losses and grad norms;
 8. the online loop (detect, summarize with K1 every window, localize, plan,
    mitigate): ``[online catalog]``, all 22 scenarios of
    ``online/catalog.py`` through ``run_scenario(sc)`` on the card, each
@@ -821,9 +833,13 @@ def attention_backward_ms(C, K2, flush) -> dict:
     return out
 
 
-def logits_ce_ms(L, flush) -> float:
+def logits_ce_ms(L, K6, flush) -> dict:
     """gemma2-2b's tied LM head, logit softcap and cross-entropy, forward
-    and backward, at the trainer's shape."""
+    and backward, at the trainer's shape: ``"k6"`` as
+    ``Transformer._loss`` runs it on the card (the bf16 product, K6, then
+    ``layers.masked_sums`` and ``mean_nll``), ``"composed"`` the composed
+    ops K6 replaced there (``layers.lm_logits``, ``layers.cross_entropy``),
+    which the CPU and a mesh still run."""
     g = torch.Generator(device="cuda").manual_seed(3)
     h = _rand(g, (1, TRAIN_SEQ, 2304), torch.bfloat16).requires_grad_(True)
     table = (_rand(g, (256000, 2304), torch.bfloat16) * 0.02
@@ -831,10 +847,16 @@ def logits_ce_ms(L, flush) -> float:
     labels = torch.randint(0, 256000, (1, TRAIN_SEQ), generator=g,
                            device="cuda")
 
-    def run():
+    def k6():
+        rows = K6.cross_entropy(h @ table.t(), labels, 256000, 30.0)
+        loss, _ = L.mean_nll(*L.masked_sums(rows, labels))
+        torch.autograd.grad(loss, (h, table))
+
+    def composed():
         loss, _ = L.cross_entropy(L.lm_logits(table, h, 30.0), labels, 256000)
         torch.autograd.grad(loss, (h, table))
-    return timed_ms(run, 3, flush)
+    return {"k6": timed_ms(k6, 3, flush),
+            "composed": timed_ms(composed, 3, flush)}
 
 
 def k3_inputs(shape, seed: int, dtype, ranges: str = "model"):
@@ -1409,15 +1431,203 @@ def k5_timing(K5, flush) -> dict:
     return out
 
 
+#: K6's cases on the card: (label, rows, V, vocab size, softcap, type):
+#: mamba2-2.7b's head as the port pads it (the cells') and at the
+#: published vocabulary (rows off the 16-byte grid), the published
+#: Zamba2-7B's (4096 tokens), gemma2-2b's softcap over padded columns, f32
+K6_CASES = (
+    ("mamba2", MAMBA_SEQ, 50_432, 50_277, 0.0, torch.bfloat16),
+    ("mamba2 unaligned", MAMBA_SEQ, 50_277, 50_277, 0.0, torch.bfloat16),
+    ("zamba2-7b-instruct", INSTRUCT_SEQ, 32_000, 32_000, 0.0,
+     torch.bfloat16),
+    ("gemma2 softcap", 512, 256_000, 255_900, 30.0, torch.bfloat16),
+    ("f32", 300, 5_003, 4_999, 0.0, torch.float32),
+)
+#: K6 vs the composed ops: the nll's and lse's relative error; dh in bf16
+#: steps (f32: relative to each element)
+K6_NLL_TOL = 1e-5
+K6_F32_TOL = 1e-5
+
+
+def k6_inputs(rows, V, vocab, dtype, seed: int, pad: bool = True) -> tuple:
+    """The head's product h (rows, V), labels below ``vocab`` (every fifth
+    row padding when ``pad``), and the nll's gradient as the mean loss
+    gives it, on the card, from the seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = (2 * _rand(g, (rows, V), torch.float32)).to(dtype)
+    labels = torch.randint(0, vocab, (rows,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    if pad:
+        labels[::5] = -1
+    dnll = torch.where(labels >= 0, 1.0 / rows, 0.0)
+    return h, labels, dnll
+
+
+def k6_checks(K6) -> dict:
+    """K6 against the composed ops it replaces
+    (``K6.cross_entropy_reference``, which ``models.layers`` runs, and
+    autograd through it) on every ``K6_CASES`` case: the nll and lse within
+    ``K6_NLL_TOL`` (relative), dh within one bf16 step (f32: ``K6_F32_TOL``
+    of each element), the padded columns' dh 0, the backward the same bits
+    three times, one launch counted a call and direction.  Returns the
+    worst figures."""
+    ce = K6.cross_entropy
+    worst = {"nll": 0.0, "dh_steps": 0, "dh_differ": 0}
+    for i, (label, rows, V, vocab, cap, dt) in enumerate(K6_CASES):
+        h, labels, g = k6_inputs(rows, V, vocab, dt, 70 + i)
+        before = dict(ce.launches_by_direction)
+        with torch.enable_grad():
+            hg = h.clone().requires_grad_(True)
+            nll = ce(hg, labels, vocab, cap)
+            (dh,) = torch.autograd.grad(nll, hg, g)
+            hr = h.clone().requires_grad_(True)
+            ref_lse, ref = K6.cross_entropy_reference(hr, labels, vocab, cap)
+            (ref_dh,) = torch.autograd.grad(ref, hr, g)
+        lse, _ = ce.forward(h, labels, vocab, cap)
+        again = [ce.backward(g, h, lse, labels, vocab, cap)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        if ce.launches_by_direction != {"forward": before["forward"] + 2,
+                                        "backward": before["backward"] + 3}:
+            raise AssertionError(f"[k6 check] {label}: launches not counted")
+        nll, ref = nll.detach(), ref.detach()
+        err = float(((nll - ref).abs() / ref.abs()).max())
+        lse_err = float(((lse - ref_lse).abs() / ref_lse.abs()).max())
+        if dt == torch.bfloat16:
+            steps = bf16_steps(dh, ref_dh)
+            differ, most = int((steps > 0).sum()), int(steps.max())
+            ok_dh = most <= 1
+            dh_note = (f"{differ} of {dh.numel()} elements differ, at most "
+                       f"{most} bf16 step")
+            worst["dh_steps"] = max(worst["dh_steps"], most)
+            worst["dh_differ"] += differ
+        else:
+            rel = float(((dh - ref_dh).abs()
+                         / (ref_dh.abs() + 1e-30)).max())
+            ok_dh = bool(((dh - ref_dh).abs()
+                          <= K6_F32_TOL * ref_dh.abs() + 1e-12).all())
+            dh_note = f"max relative error {rel:.3g}"
+        same = all(torch.equal(run.view(torch.uint8), dh.view(torch.uint8))
+                   for run in again)
+        pad_zero = bool((dh[:, vocab:] == 0).all())
+        print(f"[k6 check] {label} ({rows}, {V}) vocab {vocab} softcap {cap} "
+              f"{dt}: nll max relative error {err:.3g}, lse {lse_err:.3g} "
+              f"(limit {K6_NLL_TOL:.0e}); dh {dh_note}; padded columns 0: "
+              f"{pad_zero}; backward the same bits 3 times: {same}")
+        if not (err <= K6_NLL_TOL and lse_err <= K6_NLL_TOL and ok_dh
+                and same and pad_zero and bool(torch.isfinite(dh).all())):
+            raise AssertionError(f"[k6 check] {label} disagrees with the "
+                                 f"composed ops")
+        worst["nll"] = max(worst["nll"], err, lse_err)
+        del h, labels, g, hg, hr, nll, dh, ref, ref_dh, again
+        torch.cuda.empty_cache()
+    return worst
+
+
+def k6_timing(K6, flush) -> dict:
+    """K6 at the cells' heads (mamba2-2.7b's 2048 x 50,432 with 50,277
+    tokens kept, the published Zamba2-7B's 4096 x 32,000) and at mamba2's
+    published 50,277 columns (rows off the 16-byte grid), bf16: each
+    direction's device time by ``torch.profiler`` (the mean of
+    ``TIMED_LAUNCHES`` calls, each after an L2 flush) beside its bytes
+    bound; the composed ops it replaces (forward, and forward + backward
+    under autograd) and the library call on the f32 logits they make,
+    ``F.cross_entropy`` (only this script calls it; forward, and forward +
+    backward), by CUDA events queued behind a spin."""
+    from torch.profiler import ProfilerActivity, profile
+    F = torch.nn.functional
+    ce = K6.cross_entropy
+    out = {}
+    for key, rows, V, vocab in (("mamba2", MAMBA_SEQ, 50_432, 50_277),
+                                ("mamba2_unaligned", MAMBA_SEQ, 50_277,
+                                 50_277),
+                                ("zamba2_instruct", INSTRUCT_SEQ, 32_000,
+                                 32_000)):
+        h, labels, g = k6_inputs(rows, V, vocab, torch.bfloat16, 11,
+                                 pad=False)
+        lse, nll = ce.forward(h, labels, vocab, 0.0)
+        dh = ce.backward(g, h, lse, labels, vocab, 0.0)
+        fwd_bound = K6.bound_ms([h, labels, lse, nll])
+        bwd_bound = K6.bound_ms([g, h, lse, labels, dh])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIMED_LAUNCHES):
+                flush.zero_()
+                ce.forward(h, labels, vocab, 0.0)
+                flush.zero_()
+                ce.backward(g, h, lse, labels, vocab, 0.0)
+            torch.cuda.synchronize()
+        seen = {"ce_fwd": [], "ce_bwd": []}
+        for e in device_events(prof):
+            for name in seen:
+                if name in e.name():
+                    seen[name].append(e.duration_ns() / 1e6)
+        mean = {k: sum(v) / len(v) if v else float("nan")
+                for k, v in seen.items()}
+        dev_fwd, dev_bwd = mean["ce_fwd"], mean["ce_bwd"]
+        hg = h.clone().requires_grad_(True)
+        plain_fwd = queued_ms(
+            lambda: K6.cross_entropy_reference(h, labels, vocab, 0.0),
+            TIMED_LAUNCHES, flush)
+
+        def plain_both():
+            with torch.enable_grad():
+                _, o = K6.cross_entropy_reference(hg, labels, vocab, 0.0)
+                torch.autograd.grad(o, hg, g)
+        logits = K6.logits_reference(h, 0.0)[:, :vocab]
+        lg = logits.clone().requires_grad_(True)
+        target = labels.long()
+
+        def library():
+            return F.cross_entropy(logits, target, reduction="none")
+
+        def lib_both():
+            with torch.enable_grad():
+                o = F.cross_entropy(lg, target, reduction="none")
+                torch.autograd.grad(o, lg, g)
+        plain_both_ms = queued_ms(plain_both, TIMED_LAUNCHES, flush)
+        lib_ms = queued_ms(library, TIMED_LAUNCHES, flush)
+        lib_both_ms = queued_ms(lib_both, TIMED_LAUNCHES, flush)
+        lib_err = float(((library() - nll).abs() / nll.abs()).max())
+        print(f"[k6 time] {key} ({rows}, {V}) vocab {vocab} bf16: forward "
+              f"device {dev_fwd:.4f} ms (bound {fwd_bound:.4f} ms by bytes, "
+              f"{fwd_bound / dev_fwd:.1%}), backward device {dev_bwd:.4f} ms"
+              f" (bound {bwd_bound:.4f} ms, {bwd_bound / dev_bwd:.1%}); "
+              f"kernels recorded { {k: len(v) for k, v in seen.items()} }; "
+              f"the composed ops: forward {plain_fwd:.4f} ms, forward + "
+              f"backward {plain_both_ms:.4f} ms (K6 {dev_fwd + dev_bwd:.4f} "
+              f"ms); library F.cross_entropy on the f32 logits: forward "
+              f"{lib_ms:.4f} ms, forward + backward {lib_both_ms:.4f} ms (its "
+              f"nll within {lib_err:.3g} of K6's)")
+        out[key] = dict(device_ms=dev_fwd, backward_device_ms=dev_bwd,
+                        bound_ms=fwd_bound, backward_bound_ms=bwd_bound,
+                        plain_ms=plain_fwd, plain_fwd_bwd_ms=plain_both_ms,
+                        library_ms=lib_ms, library_fwd_bwd_ms=lib_both_ms)
+        del h, labels, g, lse, nll, dh, hg, logits, lg
+        torch.cuda.empty_cache()
+    return out
+
+
+def k6_check_steps(tag, run) -> None:
+    """K6 launched once each way in every counted step of a
+    ``trainer_phase`` run: the training loss."""
+    want = {"forward": 1, "backward": 1}
+    print(f"{tag} K6 launches a step {run['k6_per_step'][0]} (the loss)")
+    if run["k6_per_step"] != [want] * TRAIN_STEPS:
+        raise AssertionError(f"{tag} K6 launches per step "
+                             f"{run['k6_per_step']}, expected {want}")
+
+
 def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
                   TrainConfig, DataConfig, OptConfig, Tracer) -> dict:
     """The full trainer of ``cfg``: 5 instrumented steps of batch 1 x
     ``seq`` tokens on the card.  ``counter`` is the wrapper of the kernel
     the path runs once a layer (``label`` names it, ``fragment`` is a piece
     of its device-side name for the profiler).  Returns, besides, K2's and
-    K3's launches by variant over the counted steps, and K4's and K5's by
-    direction in each step."""
+    K3's launches by variant over the counted steps, and K4's, K5's and
+    K6's by direction in each step."""
     from repro_torch.kernels.causal_conv import causal_conv_silu
+    from repro_torch.kernels.cross_entropy import cross_entropy
     from repro_torch.kernels.rms_norm import rms_norm
     tr = Trainer(cfg, DataConfig(batch=1, seq_len=seq), OptConfig(),
                  TrainConfig(perftracker=False), device="cuda")
@@ -1441,11 +1651,12 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
     tracer = Tracer(worker=0)
     tracer.start_window()
     reset_counts(*kernels)
-    per_step, rows, aux, k4_steps, k5_steps = [], [], [], [], []
+    per_step, rows, aux, k4_steps, k5_steps, k6_steps = [], [], [], [], [], []
     for i in range(TRAIN_STEPS):
         before = counter.launches
         k4_before = dict(rms_norm.launches_by_direction)
         k5_before = dict(causal_conv_silu.launches_by_direction)
+        k6_before = dict(cross_entropy.launches_by_direction)
         params, opt_state, m = tr.train_iteration(params, opt_state,
                                                   tracer=tracer)
         per_step.append(counter.launches - before)
@@ -1453,6 +1664,8 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
                          for d in k4_before})
         k5_steps.append({d: causal_conv_silu.launches_by_direction[d]
                          - k5_before[d] for d in k5_before})
+        k6_steps.append({d: cross_entropy.launches_by_direction[d]
+                         - k6_before[d] for d in k6_before})
         rows.append((float(m["loss"]), float(m["grad_norm"])))
         aux.append(float(m["aux"]))
     launches = counter.launches
@@ -1478,7 +1691,8 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
         print(f"{tag} step {i + 1}: dataloader.next {d:.4f} s, "
               f"train.step {s:.4f} s, optimizer.step {o:.4f} s; loss "
               f"{loss:.4f}{aux_note} grad norm {gnorm:.4f}; {label} launches "
-              f"{per_step[i]}, K4 {k4_steps[i]}, K5 {k5_steps[i]}; max memory "
+              f"{per_step[i]}, K4 {k4_steps[i]}, K5 {k5_steps[i]}, K6 "
+              f"{k6_steps[i]}; max memory "
               f"allocated {peak} bytes")
     if not all(math.isfinite(x) for r in rows for x in r):
         raise AssertionError("trainer loss or grad norm not finite")
@@ -1496,7 +1710,8 @@ def trainer_phase(tag, cfg, seq, kernels, label, counter, fragment, Trainer,
                 peak=peak, state_bytes=state_bytes, profile=profile, aux=aux,
                 k2_by_variant=k2_k3[0], k3_by_variant=k2_k3[1], cost=cost,
                 step_cost=bundle.cost, k4_per_step=k4_steps,
-                k4_by_variant=k4_by_variant, k5_per_step=k5_steps)
+                k4_by_variant=k4_by_variant, k5_per_step=k5_steps,
+                k6_per_step=k6_steps)
 
 
 def k5_check_steps(tag, run, mamba_layers: int) -> None:
@@ -2981,9 +3196,11 @@ CLI_STEPS = 3
 def step_cost_phase(ARCHS) -> dict:
     """``[step cost]``: the count of one reduced gemma2 step (f32, 2 x 128
     tokens) on the card equals the count on the CPU: K2 counts by its FLOP
-    formula whichever path its forward takes, K4 by its bytes (the CPU
-    count routes the norms to K4's plain versions, as the card routes them
-    to the kernel), and the rest is the same dispatched ops."""
+    formula whichever path its forward takes, K4 and K6 by their bytes (the
+    CPU count routes the norms and the loss to K4's and K6's plain
+    versions, as the card routes them to the kernels), and the rest is the
+    same dispatched ops."""
+    from repro_torch.kernels import cross_entropy as K6
     from repro_torch.kernels import rms_norm as K4
     from repro_torch.configs.registry import reduced
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -2997,16 +3214,21 @@ def step_cost_phase(ARCHS) -> dict:
     grad_fn, _ = make_split_train_step(model, AdamW(OptConfig()))
     batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(
         cfg, DataConfig(batch=2, seq_len=128)).batch_at(0).items()}
-    takes = K4.takes
-    K4.takes = lambda t: type(t).__name__ != "DTensor"
+    kernels = (K4, K6)
+    takes = [k.takes for k in kernels]
+    for k in kernels:
+        k.takes = lambda t: type(t).__name__ != "DTensor"
     try:
         cpu = count_step(grad_fn, params, batch)
     finally:
-        K4.takes = takes
+        for k, t in zip(kernels, takes):
+            k.takes = t
     card = count_step(grad_fn, map_params(lambda t: t.cuda(), params),
                       {k: v.cuda() for k, v in batch.items()})
-    if not card.detail_bytes.get("rms_norm_bwd"):
-        raise AssertionError("[step cost] the card's step did not count K4")
+    for op, name in (("rms_norm_bwd", "K4"), ("cross_entropy_bwd", "K6")):
+        if not card.detail_bytes.get(op):
+            raise AssertionError(f"[step cost] the card's step did not count "
+                                 f"{name}")
     print(f"[step cost] reduced gemma2 (2 layers, d_model 64, f32, 2 x 128 "
           f"tokens): card {card.flops:.6g} FLOPs {card.bytes:.6g} bytes, "
           f"CPU {cpu.flops:.6g} FLOPs {cpu.bytes:.6g} bytes")
@@ -3372,6 +3594,7 @@ def main() -> int:
                                                  FleetSimulator, SimConfig)
         from repro_torch.kernels import _build
         from repro_torch.kernels import causal_conv as K5
+        from repro_torch.kernels import cross_entropy as K6
         from repro_torch.kernels import flash_attention as K2
         from repro_torch.kernels import pattern_summary as K
         from repro_torch.kernels import rms_norm as K4
@@ -3402,13 +3625,14 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("fp32 matmuls must not run in TF32")
 
-    # -- 1. build the five kernels at once -------------------------------------
+    # -- 1. build the six kernels at once --------------------------------------
     t = time.perf_counter()
     libs = _build.build_all([(K.SOURCE, "k1_pattern_summary"),
                              (K2.SOURCE, "k2_flash_attention"),
                              (K3.SOURCE, "k3_ssd_scan"),
                              (K4.SOURCE, "k4_rms_norm"),
-                             (K5.SOURCE, "k5_causal_conv")])
+                             (K5.SOURCE, "k5_causal_conv"),
+                             (K6.SOURCE, "k6_cross_entropy")])
     print(f"[build] {[lib.name for lib in libs]} in "
           f"{time.perf_counter() - t:.2f}s (parallel nvcc)")
     for lib in libs:
@@ -3422,6 +3646,7 @@ def main() -> int:
     K3.ssd_scan.library()
     K4.rms_norm.library()
     K5.causal_conv_silu.library()
+    K6.cross_entropy.library()
     for dt in (torch.bfloat16, torch.float32):
         print(f"[build] K2 {dt}: " + ", ".join(
             f"D={d} {K2.variant_for(dt, d)} "
@@ -3612,7 +3837,7 @@ def main() -> int:
         K2, flush, "zamba2-7b-instruct shared attention", INSTRUCT_HEADS,
         INSTRUCT_D, INSTRUCT_D, INSTRUCT_SCALE, seed=6, seq=INSTRUCT_SEQ)
     bwd = attention_backward_ms(C, K2, flush)
-    head = logits_ce_ms(L, flush)
+    head = logits_ce_ms(L, K6, flush)
     del flush
     n_pairs = ARCHS["gemma2-2b"].num_layers // 2
     fwd_step = n_pairs * (k2_times[(TRAIN_SEQ, "local")]["ms"]
@@ -3622,7 +3847,8 @@ def main() -> int:
           f"forward {fwd_step:.3f} ms (26 launches), plain attention backward "
           f"{bwd_step:.3f} ms (26 layers; one layer local {bwd['local']:.3f} "
           f"/ global {bwd['global']:.3f} ms), LM head + softcap + CE "
-          f"forward+backward {head:.3f} ms")
+          f"forward+backward {head['k6']:.3f} ms by K6 (the composed ops "
+          f"{head['composed']:.3f} ms)")
     torch.cuda.empty_cache()
     clock.lap("K2 time and breakdown")
 
@@ -3637,6 +3863,7 @@ def main() -> int:
     if tr["by_variant"] != {"wgmma": tr["launches"], "simt": 0}:
         raise AssertionError("the gemma2 trainer's K2 launches were not all "
                              "wgmma")
+    k6_check_steps("[trainer]", tr)
     clock.lap("gemma2 trainer")
 
     # -- 7. the trainer fleet, diagnosed on the card --------------------------
@@ -3670,9 +3897,14 @@ def main() -> int:
     # -- 8c. K5 against the composed ops, and its times -----------------------
     k5_err = k5_checks(K5)
     k5_time = k5_timing(K5, flush)
+    clock.lap("K5 check and time")
+
+    # -- 8d. K6 against the composed ops, and its times -----------------------
+    k6_err = k6_checks(K6)
+    k6_time = k6_timing(K6, flush)
     del flush
     torch.cuda.empty_cache()
-    clock.lap("K5 check and time")
+    clock.lap("K6 check and time")
 
     # -- 9. the full mamba2-2.7b trainer: the main path of K3 -----------------
     mcfg = ARCHS[MAMBA]
@@ -3702,6 +3934,7 @@ def main() -> int:
         raise AssertionError("the mamba2 trainer's K4 launches were not one "
                              "a norm each way")
     k5_check_steps("[mamba2 trainer]", mtr, mcfg.num_layers)
+    k6_check_steps("[mamba2 trainer]", mtr)
     clock.lap("mamba2 trainer")
 
     # -- 10. the online loop: catalog, paper-window fleet, real rollback ------
@@ -3733,6 +3966,7 @@ def main() -> int:
     if moe_tr["by_variant"] != {"wgmma": moe_tr["launches"], "simt": 0}:
         raise AssertionError("the moe trainer's K2 launches were not all "
                              "wgmma")
+    k6_check_steps("[moe trainer]", moe_tr)
     clock.lap("moe trainer")
 
     # -- 11c. the hybrid family: zamba2-7b served at full depth, trained with
@@ -3756,6 +3990,7 @@ def main() -> int:
         raise AssertionError("the hybrid trainer's K2 and K3 launches were "
                              "not all wgmma, or not one an application")
     k5_check_steps("[hybrid trainer]", hyb_tr, ZAMBA_TRAIN_LAYERS)
+    k6_check_steps("[hybrid trainer]", hyb_tr)
     hyb_remat = hybrid_remat_phase(K, K2, K3, zcfg, hyb_tr, Trainer,
                                    TrainConfig, DataConfig, OptConfig)
     clock.lap("hybrid trainer")
@@ -3999,6 +4234,32 @@ def main() -> int:
         "timings": k5_time,
         "dry_run": "traced through repro_torch::causal_conv_silu_fwd / "
                    "_bwd's fake implementations",
+    }, {
+        "name": "cross_entropy",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/cross_entropy.cu",
+        "replaces": None,
+        "why": "keeps the training loss's f32 (tokens x vocab) logits and "
+               "their gradients out of device memory (the composed ops "
+               "save one for autograd and their backward makes four)",
+        "launches_per_mamba2_step": mtr["k6_per_step"][0],
+        "launches_per_zamba2_step": hyb_tr["k6_per_step"][0],
+        "shape": "bf16 (2048, 50432), 50277 kept: mamba2-2.7b's head as "
+                 "the port pads it; (4096, 32000): zamba2-7b-instruct's",
+        "max_rel_err_nll": k6_err["nll"],
+        "dh_max_bf16_steps": k6_err["dh_steps"],
+        "dh_elements_differing": k6_err["dh_differ"],
+        "device_ms": k6_time["mamba2"]["device_ms"],
+        "backward_device_ms": k6_time["mamba2"]["backward_device_ms"],
+        "bound_ms": k6_time["mamba2"]["bound_ms"],
+        "backward_bound_ms": k6_time["mamba2"]["backward_bound_ms"],
+        "bound_by": "bytes",
+        "plain_ms": k6_time["mamba2"]["plain_ms"],
+        "library_ms": k6_time["mamba2"]["library_ms"],
+        "library_call": "torch.nn.functional.cross_entropy on the f32 logits",
+        "timings": k6_time,
+        "dry_run": "traced through repro_torch::cross_entropy_fwd / _bwd's "
+                   "fake implementations",
     }]}))
     print(f"[step cost] summary: " + json.dumps({
         "card_vs_cpu_reduced_gemma2": cost_check,

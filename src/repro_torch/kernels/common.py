@@ -1,6 +1,7 @@
-"""What the port's five hand kernels share.  Each wrapper (K1
+"""What the port's six hand kernels share.  Each wrapper (K1
 ``pattern_summary``, K2 ``flash_attention``, K3 ``ssd_scan``, K4
-``rms_norm``, K5 ``causal_conv``) imports this module and ``_build`` and
+``rms_norm``, K5 ``causal_conv``, K6 ``cross_entropy``) imports this module
+and ``_build`` and
 no other wrapper; it keeps only what is its own: its argument checks,
 its variant rule, its scratch sizes, its plain version, its custom ops
 with their fakes, and its launch calls.
@@ -18,7 +19,7 @@ with their fakes, and its launch calls.
   CPU (the plain version inside it unseen) and on the card alike.
 * The rules of a call: when it may skip the dispatcher (``unwatched``),
   its device context (``on``), its checks made once a layout
-  (``Layouts``), K4's and K5's routing (``takes``) and bytes bound
+  (``Layouts``), K4's, K5's and K6's routing (``takes``) and bytes bound
   (``bound_ms``), and the sm_90 TMA rules of K2's and K3's wgmma variants
   (``tma_strides``; ``csrc/sm90.cuh`` is their C++ side).
 """
@@ -56,13 +57,13 @@ F32, F64 = ctypes.c_float, ctypes.c_double
 #: the FLOPs of a hand kernel's custom op, by the op's name in the
 #: ``repro_torch`` namespace: (the name ``launch.step_cost`` files the op
 #: under, its FLOPs from the op's arguments).  An op not named here counts
-#: no FLOPs, under its own name (K4's and K5's compute no products).
+#: no FLOPs, under its own name (K4's, K5's and K6's compute no products).
 OP_FLOPS: Dict[str, Tuple[str, Callable[..., float]]] = {}
 
 
 class Kernel:
     """The base of a kernel's wrapper.  A subclass names the kernel
-    (``NAME``, "K1" to "K5"; its C functions and its library's file start
+    (``NAME``, "K1" to "K6"; its C functions and its library's file start
     with ``NAME.lower()``), its CUDA source (``SOURCE``, under ``csrc/``),
     its C functions' signatures (``SIGNATURES``: name -> (argument types,
     result type); the error-string function is added) and its launch
@@ -119,7 +120,7 @@ class Kernel:
 
 
 def takes(x: Tensor) -> bool:
-    """Whether the models route ``x`` to K4 or K5: a tensor on a CUDA
+    """Whether the models route ``x`` to K4, K5 or K6: a tensor on a CUDA
     device (a dry run's fake ones included) that is not a DTensor."""
     return x.device.type == "cuda" and type(x).__name__ != "DTensor"
 
@@ -138,9 +139,10 @@ def unwatched(tensors: Sequence[Optional[Tensor]]) -> bool:
     which spares the custom op's host time (on an H100 host a norm's
     forward and backward fell from ~980 to ~750 us with the checks made
     once a layout); every other call goes through the op, whose fake
-    implementation and count those readers need.  K4 and K5 take it; K2
-    and K3 always enter through their ops, whose events the benchmark
-    reads in the device trace."""
+    implementation and count those readers need.  K4 and K5 take it; K2,
+    K3 and K6 always enter through their ops, whose events the benchmark
+    reads in the device trace (K6 runs twice a step, too few calls for the
+    op's host time to matter)."""
     return _get_current_dispatch_mode() is None and all(
         type(t) in _PLAIN for t in tensors if t is not None)
 

@@ -26,15 +26,15 @@ Every hand kernel runs behind custom ops (``repro_torch::*``), and this
 mode counts each call as the one op it is: the FLOPs its kernel module
 gives the op (K2's forward ``kernels.flash_attention.fwd_flops``, 2 (D +
 Dv) per unmasked pair and head; K3's ``kernels.ssd_scan.ssd_flops``; none
-for K4's and K5's, which compute no products) and the bytes of its tensor
+for K4's, K5's and K6's, which compute no products) and the bytes of its tensor
 arguments and results, filed under the kernel's name (``flash_attention``,
 ``ssd_scan``, ``rms_norm_fwd``, ...).  A mode does not see the ops inside
 a custom op's body, so the compiled library on the card and the plain
 version on the CPU count alike, on whichever thread autograd runs the op.
 K2's and K3's backwards run as plain torch on both devices and are counted
-as dispatched.  The CPU counts K4 and K5 only where it takes them too (the
-models route CPU tensors to the composed norms and convs, ``K4.takes``,
-``K5.takes``).
+as dispatched.  The CPU counts K4, K5 and K6 only where it takes them too
+(the models route CPU tensors to the composed norms, convs and loss,
+``K4.takes``, ``K5.takes``, ``K6.takes``).
 
 On real tensors a count runs the step: one extra forward and backward.
 Under a ``FakeTensorMode`` (``launch.dryrun``) nothing runs: the ops whose

@@ -20,6 +20,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import cross_entropy as K6
 from repro_torch.kernels import rms_norm as K4
 
 Tensor = torch.Tensor
@@ -219,11 +220,9 @@ def embed_lookup(p, ids: Tensor, scale: bool, d: int) -> Tensor:
 
 def lm_logits(table_or_head: Tensor, x: Tensor, softcap: float) -> Tensor:
     """fp32 logits: the product in the activation dtype, then cast, then
-    the tanh softcap (the reference's order, ``layers.py:133-137``)."""
-    logits = (x @ table_or_head.t()).float()
-    if softcap:
-        logits = torch.tanh(logits / softcap) * softcap
-    return logits
+    the tanh softcap (the reference's order, ``layers.py:133-137``;
+    ``K6.logits_reference``)."""
+    return K6.logits_reference(x @ table_or_head.t(), softcap)
 
 
 def softcap(x: Tensor, cap: float) -> Tensor:
@@ -239,25 +238,29 @@ def cross_entropy(logits: Tensor, labels: Tensor, vocab_size: int
     """Mean next-token NLL over non-pad labels (label < 0 is padding).
     logits fp32 (..., V_padded); padded vocab positions are masked out.
     Returns (mean NLL, the count of non-pad labels, at least 1)."""
-    nll_sum, count = cross_entropy_sums(logits, labels, vocab_size)
-    total = count.clamp(min=1.0)
-    return nll_sum / total, total
+    return mean_nll(*cross_entropy_sums(logits, labels, vocab_size))
 
 
 def cross_entropy_sums(logits: Tensor, labels: Tensor, vocab_size: int
                        ) -> Tuple[Tensor, Tensor]:
     """``cross_entropy``'s two sums: the NLL summed over non-pad labels,
-    and their count."""
-    v = logits.shape[-1]
-    keep = torch.arange(v, device=logits.device) < vocab_size
-    logits = torch.where(keep, logits,
-                         torch.finfo(torch.float32).min)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1,
-                      labels.clamp(min=0).long()[..., None])[..., 0]
-    nll = lse - ll
+    and their count.  Each row's NLL is ``K6.rows_reference``, the
+    composed ops K6 takes the place of on the card."""
+    return masked_sums(K6.rows_reference(logits, labels, vocab_size)[1],
+                       labels)
+
+
+def masked_sums(nll: Tensor, labels: Tensor) -> Tuple[Tensor, Tensor]:
+    """The NLL of the rows whose label is not padding, summed, and their
+    count."""
     mask = (labels >= 0).float()
     return (nll * mask).sum(), mask.sum()
+
+
+def mean_nll(nll_sum: Tensor, count: Tensor) -> Tuple[Tensor, Tensor]:
+    """(the mean NLL, the count clamped to at least 1)."""
+    total = count.clamp(min=1.0)
+    return nll_sum / total, total
 
 
 def param_bytes(tree: Dict) -> int:

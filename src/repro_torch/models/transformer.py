@@ -59,6 +59,12 @@ layer runs expert-parallel.  Under ``dist`` the parameters and the batch are DTe
 (the trainer places them); plain tensors made inside the forward, such as
 positions and masks, count as replicated (``implicit_replication``).
 ``pad_heads`` turns on the reference's phantom-head padding.
+
+The training loss (``_loss``) of a hidden state on the card with no mesh
+runs K6 (``kernels.cross_entropy``) from the head's product on, in its
+type: no f32 (tokens x vocab) logits.  Every other loss, and ``logits``
+(serving and decode), runs the composed ops of ``layers.lm_logits`` and
+``layers.cross_entropy``, which are K6's plain versions.
 """
 from __future__ import annotations
 
@@ -73,6 +79,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.core.service import resolve_device
 from repro_torch.instrument.tracer import span
+from repro_torch.kernels import cross_entropy as K6
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -310,9 +317,7 @@ def _cross_entropy(logits, labels, vocab_size: int, dist=None):
         lambda lg, lb: _vocab_parallel_sums(lg, lb, vocab_size, group, rank),
         mesh=dist.mesh, in_specs=(P(dpe, None, tp), P(dpe, None)),
         out_specs=(summed, summed))
-    nll_sum, count = region(logits, labels)
-    total = count.clamp(min=1.0)
-    return nll_sum / total, total
+    return L.mean_nll(*region(logits, labels))
 
 
 def _vocab_parallel_sums(logits, labels, vocab_size: int, group, rank: int):
@@ -558,9 +563,13 @@ class Transformer:
         x = L.apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
         return x, stats_sum, (kvs if collect_cache else None)
 
+    def _head(self, p):
+        return p["embed"]["table"] if self.cfg.tie_embeddings \
+            else p["lm_head"]
+
     def logits(self, p, hidden):
         cfg = self.cfg
-        head = p["embed"]["table"] if cfg.tie_embeddings else p["lm_head"]
+        head = self._head(p)
         if self.dist is not None:
             # the vocab-parallel head: the product's output, its cast and
             # softcap stay sharded over the model dim, where a replicated
@@ -579,9 +588,16 @@ class Transformer:
     def _loss(self, p, batch):
         cfg = self.cfg
         hidden, stats, _ = self.forward(p, batch)
-        logits = self.logits(p, hidden)
         labels = batch["labels"]
-        nll, ntok = _cross_entropy(logits, labels, cfg.vocab_size, self.dist)
+        if (self.dist is None or self.dist.mesh is None) \
+                and K6.takes(hidden):
+            # K6 from the product in its type: no f32 logits
+            rows = K6.cross_entropy(hidden @ self._head(p).t(), labels,
+                                    cfg.vocab_size, cfg.logit_softcap)
+            nll, ntok = L.mean_nll(*L.masked_sums(rows, labels))
+        else:
+            nll, ntok = _cross_entropy(self.logits(p, hidden), labels,
+                                       cfg.vocab_size, self.dist)
         aux = torch.zeros_like(nll)
         if stats is not None and cfg.is_moe:
             total_tokens = labels.shape[0] * labels.shape[1] \

@@ -9,10 +9,10 @@ one).  The file imports no JAX: the card's machine has none.
   NCCL mesh: the wgmma kernel launches, and the output is the kernel's
   without a mesh, bit for bit.
 * The step cost of a reduced gemma2 and a reduced zamba2 counted on the
-  card equals the count on the CPU (K2 and K3 by their formulas, K4's and
-  K5's ops by their bytes; the CPU count routes the norms and the mamba
-  convs to K4's and K5's plain versions, as the card routes them to the
-  kernels).
+  card equals the count on the CPU (K2 and K3 by their formulas, K4's, K5's
+  and K6's ops by their bytes; the CPU count routes the norms, the mamba
+  convs and the loss to K4's, K5's and K6's plain versions, as the card
+  routes them to the kernels).
 * Under a one-rank mesh the RMS norm and mamba2's gated tail run their
   composed ops, not K4: one model computes norms on one device and on a
   mesh up to one bf16 step apart (a known divergence, until K4 runs in a
@@ -28,6 +28,7 @@ import torch
 from repro_torch.configs.registry import ARCHS, reduced
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.kernels import causal_conv as K5
+from repro_torch.kernels import cross_entropy as K6
 from repro_torch.kernels import rms_norm as K4
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.launch.step_cost import count_step
@@ -166,7 +167,7 @@ def test_step_count_is_the_same_on_card_and_cpu(arch, monkeypatch):
     batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(
         cfg, DataConfig(batch=2, seq_len=128)).batch_at(0).items()}
     with monkeypatch.context() as m:
-        for kernel in (K4, K5):
+        for kernel in (K4, K5, K6):
             m.setattr(kernel, "takes",
                       lambda t: type(t).__name__ != "DTensor")
         cpu = count_step(grad_fn, params, batch)
@@ -175,5 +176,6 @@ def test_step_count_is_the_same_on_card_and_cpu(arch, monkeypatch):
     assert (card.flops, card.bytes) == (cpu.flops, cpu.bytes)
     assert card.detail_flops == cpu.detail_flops
     assert "rms_norm_bwd" in card.detail_bytes
+    assert "cross_entropy_bwd" in card.detail_bytes
     if cfg.family == "hybrid":
         assert "causal_conv_silu_bwd" in card.detail_bytes

@@ -113,7 +113,7 @@ def test_no_kernel_wrapper_imports_another():
     wrappers = {p.stem for p in kernels.glob("*.py")} - {
         "__init__", "_build", "common"}
     assert wrappers == {"pattern_summary", "flash_attention", "ssd_scan",
-                        "rms_norm", "causal_conv"}
+                        "rms_norm", "causal_conv", "cross_entropy"}
     for f in sorted(kernels.glob("*.py")):
         used = {n.split(".")[2] for n in _imported_modules(f)
                 if n.startswith("repro_torch.kernels.")}

@@ -28,6 +28,7 @@ from repro_torch.kernels.ssd_scan import (ssd_oracle, ssd_scan,
                                           ssd_scan_reference)
 from repro_torch.kernels.ssd_scan import variant_for as k3_variant_for
 from repro_torch.kernels import causal_conv as K5
+from repro_torch.kernels import cross_entropy as K6
 from repro_torch.kernels import flash_attention as K2
 from repro_torch.kernels import pattern_summary as K1
 from repro_torch.kernels import rms_norm as K4
@@ -228,6 +229,7 @@ _WRAPPERS = {
     "K4": (K4.RMSNorm, K4.rms_norm,
            {"variant": "gated", "direction": "backward"}),
     "K5": (K5.CausalConvSilu, K5.causal_conv_silu, {"direction": "forward"}),
+    "K6": (K6.CrossEntropy, K6.cross_entropy, {"direction": "backward"}),
 }
 
 
