@@ -65,6 +65,11 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_noise: float = 0.0
     aux_loss_weight: float = 0.001
+    gate_topk_first: bool = False   # granite: top-k of the logits, then softmax
+    shared_d_ff: int = 0        # shared expert width (0: d_ff * num_shared_experts)
+    moe_dropless: bool = False  # every routed pair computed, no capacity
+    experts_start: int = 0      # the experts held here: [start, start + held)
+    experts_held: int = 0       # 0: all num_experts (the router keeps them all)
 
     # -- SSM (mamba2 / zamba2) -------------------------------------------------
     ssm_state: int = 0
@@ -83,6 +88,14 @@ class ModelConfig:
     num_mem_blocks: int = 1     # shared blocks, taken in turn: A, B, A, ...
     adapter_rank: int = 0       # rank of the hybrid layers' gate_up adapters
     gelu_exact: bool = False    # erf GELU (else the tanh approximation)
+
+    # -- granite-4.0-h layout (``layer_types`` non-empty) -----------------
+    # each layer a mixer of its kind, then an FFN of MoE plus shared expert
+    layer_types: Tuple[str, ...] = ()   # "mamba" | "attention", per layer
+    residual_multiplier: float = 1.0    # scales both residual branches
+    embedding_multiplier: float = 1.0   # scales the token embedding
+    logits_scaling: float = 1.0         # the head's logits divided by it
+    position_embedding: str = "rope"    # rope | nope (no position encoding)
 
     # -- modality frontend stubs -------------------------------------------
     frontend: str = ""          # "" | vision | audio
@@ -125,6 +138,22 @@ class ModelConfig:
         return self.family == "hybrid" and bool(self.hybrid_layer_ids)
 
     @property
+    def moe_hybrid(self) -> bool:
+        """The granite-4.0-h layout: every layer a Mamba2 or attention mixer
+        (``layer_types``), each followed by an MoE and a shared expert."""
+        return bool(self.layer_types)
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """The kinds of the ``num_layers`` layers held."""
+        return tuple(self.layer_types[:self.num_layers])
+
+    @property
+    def held_experts(self) -> Tuple[int, int]:
+        """``(start, count)`` of the experts this device holds."""
+        return self.experts_start, self.experts_held or self.num_experts
+
+    @property
     def hybrid_ids(self) -> Tuple[int, ...]:
         """The hybrid layers among the ``num_layers`` held."""
         return tuple(i for i in self.hybrid_layer_ids if i < self.num_layers)
@@ -134,6 +163,8 @@ class ModelConfig:
         """Returns dict with total / active / embedding parameter counts."""
         if self.published_hybrid:
             return self._published_hybrid_counts()
+        if self.moe_hybrid:
+            return self._moe_hybrid_counts()
         d, ff, V = self.d_model, self.d_ff, self.padded_vocab
         counts = {"embed": V * d}
         L = self.num_layers
@@ -234,6 +265,29 @@ class ModelConfig:
             + self.num_layers * mamba + len(self.hybrid_ids) * hybrid \
             + self.num_mem_blocks * block
         return {"embed": V * d, "total": total, "active": total}
+
+    def _moe_hybrid_counts(self) -> dict:
+        """Every leaf ``Transformer.init`` makes for the granite-4.0-h
+        layout: per layer two norms, its mixer (a Mamba2 block as the
+        published layout counts it, or GQA), the f32 router over all
+        ``num_experts``, the held experts and the shared expert; ``active``
+        counts ``top_k`` experts a layer."""
+        d, V, ff, sff = self.d_model, self.padded_vocab, self.d_ff, \
+            self.shared_d_ff
+        di, GN, H = self.d_inner, self.ssm_groups * self.ssm_state, \
+            self.ssm_heads
+        mamba = (d * (2 * di + 2 * GN + H) + (di + 2 * GN) * (
+            self.conv_width + 1) + 3 * H + di + di * d)
+        hd, nh, kv = self.head_dim, self.num_heads, self.num_kv_heads
+        attn = d * (nh + 2 * kv) * hd + nh * hd * d
+        expert = 3 * d * ff
+        ffn = d * self.num_experts + 3 * d * sff
+        total = active = V * d * (1 if self.tie_embeddings else 2) + d
+        for kind in self.layer_kinds:
+            mixer = mamba if kind == "mamba" else attn
+            total += 2 * d + mixer + ffn + self.held_experts[1] * expert
+            active += 2 * d + mixer + ffn + self.top_k * expert
+        return {"embed": V * d, "total": total, "active": active}
 
 
 @dataclass(frozen=True)

@@ -18,6 +18,7 @@ from repro_torch.configs import (  # noqa: F401
     musicgen_medium,
     zamba2_7b,
     zamba2_7b_instruct,
+    granite_4_0_h_small,
 )
 
 ARCHS: Dict[str, ModelConfig] = {
@@ -40,7 +41,8 @@ ARCHS: Dict[str, ModelConfig] = {
 #: configurations the JAX reference has no counterpart of (``ARCHS`` stays
 #: its list, which the parity tests walk): models as published
 PUBLISHED: Dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (zamba2_7b_instruct,)
+    m.CONFIG.name: m.CONFIG for m in (zamba2_7b_instruct,
+                                       granite_4_0_h_small)
 }
 
 

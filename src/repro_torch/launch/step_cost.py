@@ -7,7 +7,8 @@ compiled module to read).
 ``TorchDispatchMode`` and returns a ``Cost`` with the reference's fields:
 
 * FLOPs of ``mm``, ``bmm``, ``addmm``, ``baddbmm`` (``2 * numel(result) *
-  K``) and ``convolution`` (``2 * numel(result) * kernel_spatial * Cin /
+  K``; the held-expert MoE layer's grouped products are one ``mm`` a held
+  expert over its slice, ``models/moe.py``) and ``convolution`` (``2 * numel(result) * kernel_spatial * Cin /
   groups``), the reference's formulas, and of the hand kernels' custom
   ops by the formula each kernel module gives (``kernels.common.OP_FLOPS``);
   elementwise ops count none;

@@ -1,7 +1,8 @@
 """Attention: GQA/MQA/MHA over the blocked online-softmax core (kernel K2 on
 the card), sliding-window and logit-softcap variants (gemma2), MLA
 (deepseek-v2) with its per-head K/V materialized for training and prefill
-(K2 at q/k head dim 192, v 128) and absorbed for decode, and the
+(K2 at q/k head dim 192, v 128) and absorbed for decode, GQA with no
+position encoding (``position_embedding`` "nope", granite-4.0-h), and the
 single-token decode paths against a KV cache or MLA's latent cache (port of
 the reference's ``repro/models/attention.py``).
 
@@ -73,6 +74,8 @@ def _qkv(p, x: Tensor, cfg, positions: Tensor):
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.position_embedding == "nope":
+        return q, k, v
     return (L.apply_rope(q, positions, cfg.rope_theta),
             L.apply_rope(k, positions, cfg.rope_theta), v)
 

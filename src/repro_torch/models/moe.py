@@ -15,6 +15,24 @@ order, with no atomics, so a layer gives the same bits on every run).
 Every shape is static and nothing reads a value back to the host, so on
 the card the dispatch stays on the stream.
 
+The dropless held-expert layer (``_moe_held``; granite-4.0-h's, chosen by
+``cfg.moe_dropless``) routes over all ``num_experts`` and computes every
+pair routed to the experts this device holds, ``cfg.held_experts``
+(holding fewer than ``num_experts`` asks for ``moe_dropless``).  The
+router's gate may take the top k of the logits and then a softmax over
+those k (``cfg.gate_topk_first``).  The held experts' group sizes are read
+back to the host once a layer, in one read, and size every buffer: the
+gathered rows, one matrix product a held expert over its sorted slice
+(each expert's SwiGLU, its activation weighed by the gate before the
+output product), and the combine, which adds each token's rows in
+ascending expert order from zeros, one ``index_add_`` per place in that
+order (each token at most once a call: no two adds meet), so a layer gives
+the same bits on every run.  Its spans are ``moe.route``, ``moe.experts``
+and ``moe.combine``; ``counters`` keeps the pairs it routed to held
+experts, those of them it did not gather (0 unless the layer is wrong) and
+the largest held expert's pairs in one layer, from the same read (no read
+of their own).
+
 Expert parallelism (``dist`` with a mesh; the reference's "replicated-token
 EP", DESIGN.md §4): activations are sharded over the data dims and
 replicated over the model dim; experts are sharded over the model dim.  In
@@ -32,7 +50,9 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._guards import active_fake_mode
 
+from repro_torch.instrument.tracer import span
 from repro_torch.models import layers as L
 
 Tensor = torch.Tensor
@@ -40,18 +60,45 @@ Tensor = torch.Tensor
 
 def init_moe(gen, cfg, dtype=torch.float32, device=None):
     """Router ``(d, E)`` in f32 whatever ``dtype`` is (as the reference),
-    experts ``wi (E, d, 2, ff)`` and ``wo (E, ff, d)``, and the shared
-    experts as one MLP of width ``ff * num_shared_experts``."""
+    the held experts (all E unless ``cfg.experts_held``) ``wi (E_held, d,
+    2, ff)`` and ``wo (E_held, ff, d)``, and the shared experts as one MLP
+    of width ``cfg.shared_d_ff``, or ``ff * num_shared_experts``."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    held = cfg.held_experts[1]
     p = {
         "router": L.dense_init(gen, (d, E), torch.float32, device=device),
-        "wi": L.dense_init(gen, (E, d, 2, ff), dtype, device=device),
-        "wo": L.dense_init(gen, (E, ff, d), dtype, device=device),
+        "wi": L.dense_init(gen, (held, d, 2, ff), dtype, device=device),
+        "wo": L.dense_init(gen, (held, ff, d), dtype, device=device),
     }
     if cfg.num_shared_experts:
-        p["shared"] = L.init_mlp(gen, d, ff * cfg.num_shared_experts,
+        p["shared"] = L.init_mlp(gen, d, cfg.shared_d_ff
+                                 or ff * cfg.num_shared_experts,
                                  cfg.mlp, cfg.use_bias, dtype, device)
     return p
+
+
+class Counters:
+    """What the held-expert layer routed since ``reset``: ``pairs`` routed
+    to held experts, ``dropped``, those of them it did not gather,
+    ``largest`` held expert's pairs in one layer, and ``layers`` run (a
+    layer that ``remat`` recomputes counts again).  Plain integers, set
+    from the group sizes the layer reads back anyway and the gathered
+    rows' shape."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.pairs = self.dropped = self.largest = self.layers = 0
+
+    def add(self, routed, gathered: int) -> None:
+        self.pairs += sum(routed)
+        self.dropped += sum(routed) - gathered
+        self.largest = max([self.largest, *routed])
+        self.layers += 1
+
+
+counters = Counters()
 
 
 def _capacity(tokens_local: int, cfg) -> int:
@@ -63,12 +110,18 @@ def _capacity(tokens_local: int, cfg) -> int:
 def route(p, x: Tensor, cfg, capacity: int):
     """The router and the dispatch plan for tokens ``x (T, d)``: returns
     ``(probs (T, E) f32, eid_s, tid_s, gate_s, counts (E,) int64, pos,
-    keep)``, the pairs sorted stably by expert id."""
+    keep)``, the pairs sorted stably by expert id.  The gate is the top k
+    of ``probs`` or, with ``cfg.gate_topk_first``, the softmax over the top
+    k logits."""
     T = x.shape[0]
     E, k = cfg.num_experts, cfg.top_k
     logits = x.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, idx = torch.topk(probs, k, dim=-1)          # (T, k)
+    if cfg.gate_topk_first:
+        top, idx = torch.topk(logits, k, dim=-1)
+        gate_vals = torch.softmax(top, dim=-1)
+    else:
+        gate_vals, idx = torch.topk(probs, k, dim=-1)      # (T, k)
     eid = idx.reshape(-1)
     tid = torch.arange(T * k, device=x.device) // k
     gate = gate_vals.reshape(-1)
@@ -129,6 +182,66 @@ def _moe_local(p, x: Tensor, cfg, e_start: int, e_count: int,
     return y, torch.cat([counts.float(), probs.sum(dim=0)])
 
 
+def _moe_held(p, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
+    """The dropless held-expert layer (module docstring) for tokens ``x (T,
+    d)``: every pair routed to an expert of ``cfg.held_experts``.  Returns
+    ``_moe_local``'s (y, stats), the stats over all experts."""
+    if active_fake_mode() is not None:
+        raise NotImplementedError(
+            "the held-expert layer reads its group sizes back: no fake "
+            "trace")
+    T, d = x.shape
+    k = cfg.top_k
+    e0, n = cfg.held_experts
+    J = min(k, n)
+    with span("moe.route"):
+        probs, eid_s, tid_s, gate_s, counts, _, _ = route(p, x, cfg, 0)
+        keep = (eid_s >= e0) & (eid_s < e0 + n)
+        # each kept pair's place among its token's kept pairs, in ascending
+        # expert order (a token's k pairs stand together once sorted by
+        # token), and how many tokens have a pair at each place
+        by_tok = torch.argsort(tid_s, stable=True)
+        kt = keep[by_tok].view(T, k)
+        place = torch.empty_like(tid_s)
+        place[by_tok] = (kt.cumsum(1) - 1).view(-1)
+        slots = (kt.sum(1)[:, None] > torch.arange(J, device=x.device)
+                 ).sum(0)
+        starts = torch.cumsum(counts, 0) - counts
+        sizes = torch.cat([counts[e0:e0 + n], starts[e0:e0 + n],
+                           slots]).tolist()      # the layer's one read
+        routed, first, slots = sizes[:n], sizes[n:2 * n], sizes[2 * n:]
+        sl = [slice(a, a + c) for a, c in zip(first, routed)]
+        tid_k = torch.cat([tid_s[s] for s in sl])
+        gate_k = torch.cat([gate_s[s] for s in sl])
+        place_k = torch.cat([place[s] for s in sl])
+        counters.add(routed, tid_k.shape[0])
+    with span("moe.experts"):
+        rows = x[tid_k]
+        gate = gate_k[:, None].to(x.dtype)
+        wi, wo = p["wi"], p["wo"]
+        ff = wi.shape[-1]
+        act = F.silu if cfg.mlp == "swiglu" else L.gelu
+        outs, o = [], 0
+        for e, c in enumerate(routed):
+            if c:
+                h = rows[o:o + c] @ wi[e].reshape(d, 2 * ff)
+                # the gate weighs the ff-wide activation, not the d-wide
+                # output: the backward then keeps ff columns a pair
+                outs.append((act(h[:, :ff]) * h[:, ff:] * gate[o:o + c])
+                            @ wo[e])
+                o += c
+        contrib = torch.cat(outs) if outs else rows
+    with span("moe.combine"):
+        order = torch.argsort(place_k * T + tid_k)
+        y = torch.zeros_like(x)
+        o = 0
+        for c in slots:
+            ix = order[o:o + c]
+            y.index_add_(0, tid_k[ix], contrib[ix])
+            o += c
+    return y, torch.cat([counts.float(), probs.sum(dim=0)])
+
+
 def aux_loss_from_stats(stats: Tensor, cfg, total_tokens: float) -> Tensor:
     E = cfg.num_experts
     f = stats[:E] / max(total_tokens * cfg.top_k, 1.0)
@@ -140,9 +253,15 @@ def apply_moe(p, x: Tensor, cfg, dist=None) -> Tuple[Tensor, Tensor]:
     """x: (B, S, d).  Returns (y, aux stats (2E,) summed over the fleet)."""
     B, S, d = x.shape
     E = cfg.num_experts
+    if cfg.experts_held and not cfg.moe_dropless:
+        raise ValueError("holding a share of the experts is the dropless "
+                         "layer's: set moe_dropless")
     if dist is None or dist.mesh is None:
-        y, stats = _moe_local(p, x.reshape(B * S, d), cfg, 0, E,
-                              _capacity(B * S, cfg))
+        if cfg.moe_dropless:
+            y, stats = _moe_held(p, x.reshape(B * S, d), cfg)
+        else:
+            y, stats = _moe_local(p, x.reshape(B * S, d), cfg, 0, E,
+                                  _capacity(B * S, cfg))
         routed = y.reshape(B, S, d)
     else:
         routed, stats = _moe_expert_parallel(p, x, cfg, dist)

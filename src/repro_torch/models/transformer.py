@@ -33,11 +33,24 @@ enters the layer's normed input only, ``x + mamba(rms(x + m W_l))``.  Each
 application is the span ``hybrid.shared_block``.  Training only: decode,
 the cache and ``dist`` raise ``NotImplementedError`` on this layout.
 
+The granite-4.0-h layout (``cfg.moe_hybrid``: ``layer_types`` set, as in
+``configs/granite_4_0_h_small.py``) is one layer a kind in
+``params["blocks"]``: ``{"ln1", "mamba" | "attn", "ln2", "moe"}``, the
+mixer a Mamba2 block or GQA (NoPE), then the MoE and its shared expert
+(``models.moe``'s held-expert layer), each branch scaled by
+``residual_multiplier`` before its residual add
+(``apply_moe_hybrid_layer``; the FFN block is the span ``moe.layer``).
+The embedding is multiplied by ``embedding_multiplier`` and the head's
+input divided by ``logits_scaling`` (a power of two divides exactly, so
+the bf16 logits are the published ``logits / logits_scaling``).  Training
+only, as the published Zamba2 layout.
+
 ``remat`` (``"none"``, ``"full"``, ``"dots"``) runs the bodies the
 reference wraps in ``jax.checkpoint`` under
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: a layer, a
-pair (gemma2's local/global, llama4's (dense, MoE)), a hybrid group or a
-published hybrid layer (its shared block and its mamba layer).
+pair (gemma2's local/global, llama4's (dense, MoE)), a hybrid group, a
+published hybrid layer (its shared block and its mamba layer) or a
+granite-4.0-h layer (its mixer and its FFN).
 ``"full"`` saves nothing inside the body; ``"dots"`` saves the outputs of
 the matrix products without batch dims (``aten.mm``), as
 ``dots_with_no_batch_dims_saveable`` does.  K2's and K3's forwards run
@@ -136,6 +149,8 @@ def moe_layer(cfg, i: int) -> bool:
 def n_moe_layers(cfg) -> int:
     """The MoE layers the aux loss averages over (the reference's
     ``n_moe``)."""
+    if cfg.moe_hybrid:
+        return cfg.num_layers
     if cfg.moe_every > 1:
         return cfg.num_layers // cfg.moe_every
     return cfg.num_layers - cfg.first_dense
@@ -268,6 +283,38 @@ def apply_hybrid_layer(bp, sp, x, e, cfg, positions, spec,
     return x + S.apply_mamba2(bp["mamba"], h, cfg)
 
 
+def init_moe_hybrid_layer(gen, cfg, kind: str, device=None):
+    """A granite-4.0-h layer: its norms, its mixer of ``kind`` ("mamba" or
+    "attention") and the MoE with its shared expert."""
+    dt = L.dtype_of(cfg.param_dtype)
+    p = {"ln1": L.init_norm(cfg.norm, cfg.d_model, dt, device),
+         "ln2": L.init_norm(cfg.norm, cfg.d_model, dt, device),
+         "moe": M.init_moe(gen, cfg, dt, device)}
+    if kind == "mamba":
+        p["mamba"] = S.init_mamba2(gen, cfg, dt, device)
+    else:
+        p["attn"] = A.init_gqa(gen, cfg, dt, device)
+    return p
+
+
+def apply_moe_hybrid_layer(bp, x, spec, cfg, positions,
+                           impl=A.blocked_attention):
+    """``x + r mixer(rms(x))``, then ``x + r (moe(h) + shared(h))`` with
+    ``h = rms(x)`` and r the residual multiplier.  Returns (x, MoE
+    stats)."""
+    r = cfg.residual_multiplier
+    h = L.apply_norm(bp["ln1"], x, cfg.norm, cfg.norm_eps)
+    if "mamba" in bp:
+        a = S.apply_mamba2(bp["mamba"], h, cfg)
+    else:
+        a, _ = A.apply_gqa(bp["attn"], h, cfg, positions, spec, impl)
+    x = x + a * r
+    h = L.apply_norm(bp["ln2"], x, cfg.norm, cfg.norm_eps)
+    with span("moe.layer"):
+        m, stats = M.apply_moe(bp["moe"], h, cfg)
+    return x + m * r, stats
+
+
 def decode_mamba_block(bp, x, cfg, cache, dist=None):
     h = L.apply_norm(bp["ln"], x, cfg.norm, cfg.norm_eps)
     y, new_cache = S.mamba2_decode(bp["mamba"], h, cfg, cache, dist)
@@ -359,10 +406,10 @@ class Transformer:
                  folded: bool = False, pad_heads: bool = False):
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}")
-        if cfg.published_hybrid and dist is not None \
+        if (cfg.published_hybrid or cfg.moe_hybrid) and dist is not None \
                 and dist.mesh is not None:
             raise NotImplementedError(
-                "the published Zamba2 layout runs on one device: no mesh")
+                f"the {cfg.name} layout runs on one device: no mesh")
         if remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
         self.cfg = cfg
@@ -406,7 +453,10 @@ class Transformer:
                                          device=device)
         if cfg.local_global and cfg.num_layers % 2:
             raise ValueError("local/global pairs need an even layer count")
-        if cfg.family in ("ssm", "hybrid"):
+        if cfg.moe_hybrid:
+            p["blocks"] = [init_moe_hybrid_layer(gen, cfg, kind, device)
+                           for kind in cfg.layer_kinds]
+        elif cfg.family in ("ssm", "hybrid"):
             p["blocks"] = [init_mamba_block(gen, cfg, device)
                            for _ in range(cfg.num_layers)]
             if cfg.published_hybrid:
@@ -440,6 +490,8 @@ class Transformer:
                                        batch["tokens"].long(), cfg,
                                        self.dist).to(dt))
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        if cfg.embedding_multiplier != 1.0:
+            x = x * cfg.embedding_multiplier
         return _constrain(x, self.dist)
 
     def layer_specs(self, folded: bool = False) -> List[A.AttnSpec]:
@@ -451,6 +503,8 @@ class Transformer:
         full = attn_spec(cfg, 0, folded)
         if cfg.family == "ssm":
             return []
+        if cfg.moe_hybrid:
+            return [full] * cfg.layer_kinds.count("attention")
         if cfg.published_hybrid:
             return [sw] * len(cfg.hybrid_ids)
         if cfg.family == "hybrid":
@@ -504,7 +558,19 @@ class Transformer:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         specs = self.layer_specs(self.folded)
         kvs, stats_sum = [], None
-        if cfg.published_hybrid:
+        if cfg.moe_hybrid:
+            if collect_cache:
+                raise NotImplementedError(
+                    f"the {cfg.name} layout runs training only: no cache is "
+                    f"collected")
+            layer = self._maybe_remat(partial(
+                apply_moe_hybrid_layer, cfg=cfg, positions=positions,
+                impl=impl))
+            spec = specs[0] if specs else None
+            for bp in blocks:
+                x, stats = layer(bp, x, spec)
+                stats_sum = stats if stats_sum is None else stats_sum + stats
+        elif cfg.published_hybrid:
             if collect_cache:
                 raise NotImplementedError(
                     "the published Zamba2 layout runs training only: no "
@@ -567,6 +633,11 @@ class Transformer:
         return p["embed"]["table"] if self.cfg.tie_embeddings \
             else p["lm_head"]
 
+    def _head_input(self, hidden):
+        """The head's input: ``hidden`` divided by ``logits_scaling``."""
+        s = self.cfg.logits_scaling
+        return hidden if s == 1.0 else hidden / s
+
     def logits(self, p, hidden):
         cfg = self.cfg
         head = self._head(p)
@@ -576,7 +647,7 @@ class Transformer:
             # head would hold every rank's logits whole (and gather their
             # gradient back whole)
             head = self.dist.shard_vocab(head)
-        out = L.lm_logits(head, hidden, cfg.logit_softcap)
+        out = L.lm_logits(head, self._head_input(hidden), cfg.logit_softcap)
         return self.dist.constrain_logits(out) if self.dist is not None \
             else out
 
@@ -592,8 +663,9 @@ class Transformer:
         if (self.dist is None or self.dist.mesh is None) \
                 and K6.takes(hidden):
             # K6 from the product in its type: no f32 logits
-            rows = K6.cross_entropy(hidden @ self._head(p).t(), labels,
-                                    cfg.vocab_size, cfg.logit_softcap)
+            rows = K6.cross_entropy(
+                self._head_input(hidden) @ self._head(p).t(), labels,
+                cfg.vocab_size, cfg.logit_softcap)
             nll, ntok = L.mean_nll(*L.masked_sums(rows, labels))
         else:
             nll, ntok = _cross_entropy(self.logits(p, hidden), labels,
@@ -626,9 +698,9 @@ class Transformer:
         for each application of the shared block, in order (its window's
         ring once ``max_len`` exceeds it)."""
         cfg = self.cfg
-        if cfg.published_hybrid:
+        if cfg.published_hybrid or cfg.moe_hybrid:
             raise NotImplementedError(
-                "the published Zamba2 layout runs training only: no cache")
+                f"the {cfg.name} layout runs training only: no cache")
         dt = L.dtype_of(cfg.dtype)
         device = _device(device)
         if cfg.family in ("ssm", "hybrid"):
@@ -668,9 +740,9 @@ class Transformer:
         {'embeds': (B,1,d)}; pos: the current position.  Updates ``cache``
         in place; returns (logits (B,1,V), cache)."""
         cfg = self.cfg
-        if cfg.published_hybrid:
+        if cfg.published_hybrid or cfg.moe_hybrid:
             raise NotImplementedError(
-                "the published Zamba2 layout runs training only: no decode")
+                f"the {cfg.name} layout runs training only: no decode")
         x = self._embed_inputs(p, batch)
         if cfg.family == "ssm":
             for bp, c in zip(p["blocks"], cache):
